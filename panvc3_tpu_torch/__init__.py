@@ -1,0 +1,53 @@
+"""panvc3_tpu_torch — the PyTorch/CUDA port of panvc3_tpu for an NVIDIA H100.
+
+The package sits beside ``panvc3_tpu``, which stays the reference it is
+tested against.  It imports ``torch`` and never ``jax``: the host code
+that has no JAX in it (SAM/FASTA I/O, the MSA index, header processing,
+the lane controller, the host event geometry) is imported from
+``panvc3_tpu``; everything that ran on the TPU is ported here, mirroring
+the old layout and names:
+
+- ``panvc3_tpu_torch.native``        builds and loads the C host extension
+- ``panvc3_tpu_torch.alphabet``      dna5 normalisation on tensors
+- ``panvc3_tpu_torch.ops``           the realignment DP (a hand-written CUDA
+  kernel and its plain PyTorch version), the wire functions around it and
+  the batch projector's device state
+- ``panvc3_tpu_torch.pipeline``      the project_alignments fast lane
+- ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch project_alignments``
+
+Device choice is explicit: functions take a ``torch.device``; the CLI's
+``--device`` defaults to ``cuda`` and raises when no card is present.
+``cpu`` runs the plain PyTorch versions and exists for the tests.
+"""
+
+import pathlib
+
+__version__ = "0.1.0"
+
+
+def build_root() -> pathlib.Path:
+    """Directory that holds what the package builds at first use (the C
+    host extension and the CUDA kernels): ``build/panvc3_tpu_torch`` at the
+    root of the checkout."""
+    return pathlib.Path(__file__).resolve().parent.parent / "build" / "panvc3_tpu_torch"
+
+
+def resolve_device(device) -> "torch.device":  # noqa: F821
+    """The torch.device named by ``device`` ('cuda', 'cuda:N' or 'cpu').
+    A CUDA device raises when no card is present: nothing falls back to
+    the CPU."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available() "
+                "is False; pass --device cpu only to run the plain PyTorch "
+                "versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    return dev

@@ -1,0 +1,1120 @@
+"""Native-batch fast lane for project_alignments (SAM text -> SAM text).
+
+Counterpart of ``panvc3_tpu.pipeline.fastlane.run_fast``.  Records stay
+native end to end: raw line bytes -> C ``parse_stage_batch`` -> host
+event geometry -> C ``finalize_reconstruct`` -> C ``stage_realign_runs``
+-> realignment -> C ``splice_apply_format`` -> SAM text.  Python moves
+numpy arrays between those steps.
+
+The realignment of each batch's indel runs takes one of two lanes, chosen
+per batch by a ``LaneController``: the host C DP, or the device lane,
+which runs the DP as the hand-written CUDA kernel (``ops/csrc``).  With
+the threaded drain, device-lane batches defer their runs; the writer
+thread pools the runs of several batches into one aggregate dispatch
+(``_dispatch_aggregate``): gathered from the flat reference resident on
+the device (the ref-gather wires), length-sorted, and restored to input
+order at fetch.  Each dispatch copies its result into pinned host memory
+on the stream that ran the kernel and records an event after the copy;
+the fetch pool waits on that event.
+
+Covered: host event geometry (``PANVC3_EVENT_GEOMETRY`` unset or ``1``)
+and integer scoring.  ``PANVC3_EVENT_GEOMETRY=device``/``=0`` and
+quality scoring (``-q``) raise ``NotImplementedError`` naming their
+ROADMAP item.  Output is byte-identical to ``panvc3_tpu``'s fast lane and
+object path; the ordering invariants are those of the original
+(CLAUDE.md): one writer thread emits in submission order, every fetch
+goes through ``_restore``, and ``PANVC3_FASTLANE_CHAOS`` jitters every
+cross-thread handoff.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time as _time
+
+import numpy as np
+import torch
+
+from panvc3_tpu.ops.event_geometry import EventGeometry, project_unit
+from panvc3_tpu.pipeline.fastlane import (
+    FLAG_SKIP,
+    LaneController,
+    _next_row_bucket,
+    _next_rq_bucket,
+)
+from panvc3_tpu.utils import StatusReporter, format_duration, log_time
+
+from ..native import get_native
+from ..ops import realign_pallas_fused
+from ..ops.realign_batch import (
+    _realign_wire,
+    _realign_wire_refgather,
+    _realign_wire_refgather2,
+    pack_realign_refgather2_input,
+    pack_realign_refgather_input,
+    pack_realign_wire_input,
+    query_wire2_eligible,
+    realign_device_kernel,
+    unpack_realign_refgather_wire,
+    unpack_realign_wire,
+)
+
+# sparse deletion slots of the rewrite geometry (panvc3_tpu.ops.rewrite_batch)
+D_SPARSE_SLOTS = 8
+
+# PANVC3_FASTLANE_PROF=1: per-stage wall-time totals and the aggregate
+# diagnostics printed at the end of the run
+_PROF = os.environ.get("PANVC3_FASTLANE_PROF") == "1"
+
+# Aggregate-dispatch diagnostics (mutated only on the writer thread; read
+# by tests and PANVC3_FASTLANE_PROF reporting): counts of dispatches and
+# which wire/layout variants engaged.
+AGG_DIAG = {"dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0}
+
+# the adaptive host/device realign-lane choice; process-global like the
+# original's, since its EMAs describe the hardware (begin_run resets the
+# per-run span state)
+_ADAPT = LaneController()
+
+
+def check_covered(cfg, bam: bool) -> None:
+    """Raise NotImplementedError for a configuration the port's fast lane
+    does not run (``bam``: BAM input or output).  ``panvc3_tpu``'s
+    ``fastlane_eligible`` consults that package's own native loader, so
+    the port checks here instead; nothing falls through to another path."""
+    if not cfg.fastlane:
+        raise NotImplementedError(
+            "the object (non-fast-lane) device path is not ported; see ROADMAP"
+        )
+    if bam:
+        raise NotImplementedError(
+            "BAM input/output on the port's fast lane is ROADMAP Queue 1 item 8"
+        )
+    if cfg.use_read_base_qualities:
+        raise NotImplementedError(
+            "quality-scored realignment (-q) is ROADMAP Queue 1 item 1"
+        )
+    if cfg.fused_kernel:
+        raise NotImplementedError(
+            "the fused engines (--fused-kernel) are ROADMAP Queue 1 item 6"
+        )
+    if cfg.data_parallel:
+        raise NotImplementedError(
+            "--data-parallel (multi-GPU) is ROADMAP Queue 1 item 7"
+        )
+    ev_mode = os.environ.get("PANVC3_EVENT_GEOMETRY", "1")
+    if ev_mode == "device":
+        raise NotImplementedError(
+            "PANVC3_EVENT_GEOMETRY=device (DeviceEventGeometry) is ROADMAP "
+            "Queue 1 item 3"
+        )
+    if ev_mode == "0":
+        raise NotImplementedError(
+            "PANVC3_EVENT_GEOMETRY=0 (the device gap kernel) is ROADMAP "
+            "Queue 1 item 4"
+        )
+
+
+def _event_geometry(src_entries, dst_entries, ref_id_mapping, nat):
+    """The host event geometry, on this package's native build: the
+    per-reference buffer tuples of ``EventGeometry``'s native path
+    (``PANVC3_EVENT_GEOMETRY_NATIVE=0`` keeps the numpy path)."""
+    geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
+    if geo._native is None and os.environ.get("PANVC3_EVENT_GEOMETRY_NATIVE") != "0":
+        group = []
+        for pe, s in zip(geo.events, geo.src_gv):
+            if pe is None:
+                group.append(None)
+                continue
+            group.append((
+                np.ascontiguousarray(pe.gap_start),
+                np.ascontiguousarray(pe.gap_end),
+                np.ascontiguousarray(pe.del_b),
+                np.ascontiguousarray(pe.del_len),
+                np.ascontiguousarray(pe.gap_clen),
+                np.ascontiguousarray(pe.del_clen),
+                int(s.n_zeros),
+            ))
+        geo._native = nat
+        geo._native_group = group
+    return geo
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
+
+
+class _DeviceFetch:
+    """Results of one dispatch on their way to the host.  On CUDA the
+    copies into pinned host buffers are queued on the current stream right
+    after the kernel, followed by an event; ``get`` (on a fetch-pool
+    thread) waits on the event.  On the CPU the tensors are the result."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.event = None
+        if tensors[0].device.type == "cuda":
+            with torch.cuda.device(tensors[0].device):
+                self.host = []
+                for t in tensors:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    self.host.append(h)
+                self.event = torch.cuda.Event()
+                self.event.record()
+        else:
+            self.host = list(tensors)
+
+    def get(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+def run_fast(
+    reader,
+    writer,
+    cfg,
+    stats,
+    batch_engine,
+    input_header,
+    out_header,
+    src_entries,
+    dst_entries,
+    ref_id_mapping,
+    ref_seqs,
+    realigned_ranges,
+):
+    """Drive the full projection pipeline over raw line batches."""
+    from panvc3_tpu.pipeline.project_alignments import PRESERVED_TAGS
+
+    check_covered(cfg, reader.is_bam or writer.bam)
+    bp = batch_engine
+    if max(max(bp.src_dev_ids, default=0), max(bp.dst_dev_ids, default=0)) >= 65536:
+        raise NotImplementedError(
+            "more than 65536 device sequence ids; shard the index with "
+            "--msa-index-chr-shard"
+        )
+    nat = get_native()
+    device = bp.device
+
+    event_geo = _event_geometry(src_entries, dst_entries, ref_id_mapping, nat)
+
+    refmap = {name.encode(): i for i, name in enumerate(input_header.ref_names)}
+    rim = np.asarray(ref_id_mapping, dtype=np.int32)
+    src_dev = np.asarray(bp.src_dev_ids, dtype=np.int32)
+    preserved = b"".join(
+        sorted(
+            t.encode()
+            for t in (PRESERVED_TAGS | set(cfg.preserve_tags))
+            if len(t) == 2
+        )
+    )
+    t = cfg.tags
+    tag_names = (
+        t.original_rname, t.original_pos, t.original_rnext, t.original_pnext,
+        t.realn_query_ranges, t.realn_ref_ranges, t.rec_idx,
+    )
+    out_names = list(out_header.ref_names)
+    in_names = list(input_header.ref_names)
+    primary_mask = 0x100 if cfg.primary_only else 0
+    want_ranges = 1 if realigned_ranges is not None else 0
+
+    batch_size = max(4, cfg.device_batch_size)
+    go = np.float32(cfg.gap_opening_cost)
+    ge = np.float32(cfg.gap_extension_cost)
+
+    # Host C DP lane (realign_runs_host, byte-identical to the kernel):
+    # integral gap costs only, so f32 arithmetic is exact on both lanes.
+    # PANVC3_HOST_DP=0 disables it; PANVC3_HOST_DP_CELLS sets a hard
+    # cell-count threshold, unset the LaneController chooses per batch.
+    host_dp_eligible = (
+        float(go).is_integer()
+        and float(ge).is_integer()
+        and os.environ.get("PANVC3_HOST_DP") != "0"
+    )
+    _hdc_env = os.environ.get("PANVC3_HOST_DP_CELLS")
+    host_dp_cells = int(_hdc_env) if _hdc_env else None
+    adapt = _ADAPT
+    adapt.begin_run()
+
+    # Cross-batch DP aggregation (threaded drain only): device-lane batches
+    # defer the dispatch and the writer thread pools the staged runs of the
+    # in-flight window into one dispatch.  PANVC3_DP_AGGREGATE=0 disables;
+    # PANVC3_DP_AGG_RUNS is the target runs per dispatch,
+    # PANVC3_DP_AGG_BATCHES the most batches per window and
+    # PANVC3_DP_AGG_MIN_RUNS the flush-on-idle floor.
+    defer_dp = (
+        cfg.threaded_pipeline
+        and os.environ.get("PANVC3_DP_AGGREGATE", "1") != "0"
+    )
+    agg_target_runs = int(os.environ.get("PANVC3_DP_AGG_RUNS", "16384"))
+    agg_max_batches = int(os.environ.get("PANVC3_DP_AGG_BATCHES", "16"))
+    agg_min_runs = int(os.environ.get("PANVC3_DP_AGG_MIN_RUNS", "16384"))
+    # Ref-gather wires: reference rows are gathered on the device from the
+    # resident flat reference.  PANVC3_DP_REFGATHER=0 ships staged rows;
+    # PANVC3_REFGATHER_MAX_H2D caps the flat-reference upload.
+    refgather_ok = os.environ.get("PANVC3_DP_REFGATHER", "1") != "0"
+    refgather_max_h2d = int(
+        os.environ.get("PANVC3_REFGATHER_MAX_H2D", str(256 << 20))
+    )
+    # sort aggregate windows by run length (order restored at fetch) —
+    # PANVC3_DP_AGG_SORT=0 reverts
+    agg_sort = os.environ.get("PANVC3_DP_AGG_SORT", "1") != "0"
+    diag = AGG_DIAG
+
+    # shard-aware check data: dev id -1 == entry outside this index shard
+    shard_check = cfg.chr_shard is not None
+
+    reporter = StatusReporter(cfg.status_output_interval)
+
+    state = {
+        "rec_global": 0,   # input records consumed before current batch
+        "task_counter": 0,  # 4-record task groups emitted
+        "realign_fetch_ns": 0,  # fetch half of the realignment timing
+        "realign_stage_ns": 0,  # staging/dispatch half (folded at emit)
+    }
+    prof: dict[str, float] = {}
+    _prof_lock = threading.Lock()
+
+    def _tick(key: str, t0: float) -> float:
+        t1 = _time.perf_counter()
+        with _prof_lock:
+            prof[key] = prof.get(key, 0.0) + (t1 - t0)
+        return t1
+
+    def realign_status() -> str:
+        n = stats.realigned_range_count
+        msg = f"; realigned {n} ranges"
+        if n:
+            t_ns = stats.realignment_time_ns + bp.realignment_time_ns
+            usecs = t_ns / 1000.0 / n
+            mean_len = stats.realigned_range_total_length / n
+            msg += (
+                f" (in {format_duration(t_ns / 1e9)}; "
+                f"{usecs:.2f} µs / realignment, mean length {mean_len:g} characters)"
+            )
+        return msg
+
+    reporter.extra_cb = realign_status
+
+    # fetch pool: waits for device results off the writer thread, so
+    # several dispatches' copies overlap host work
+    fetch_pool = None
+    if cfg.threaded_pipeline:
+        from concurrent.futures import ThreadPoolExecutor
+
+        fetch_pool = ThreadPoolExecutor(max_workers=4)
+
+    # Flat-reference ingestion for the ref-gather wires: grow-only
+    # accumulation of the contigs batches reference, rebuilt when pending
+    # growth reaches 25%, abandoned once the total would exceed the cap.
+    _rg_accum: dict[int, bytes] = {}
+    _rg_state = {"flat": 0, "pending": 0, "idle": 0, "disabled": not refgather_ok}
+    _rg_lock = threading.Lock()
+
+    def _ingest_refs(snap):
+        if _rg_state["disabled"]:
+            return
+        with _rg_lock:
+            if _rg_state["disabled"]:
+                return
+            new = 0
+            for rid, seq in snap.items():
+                if rid not in _rg_accum:
+                    _rg_accum[rid] = seq
+                    new += len(seq)
+            if new:
+                _rg_state["pending"] += new
+                _rg_state["idle"] = 0
+            elif _rg_state["pending"]:
+                # a deferred rebuild must not starve
+                _rg_state["idle"] += 1
+            if not _rg_state["pending"]:
+                return
+            total = _rg_state["flat"] + _rg_state["pending"]
+            if total > refgather_max_h2d:
+                _rg_state["disabled"] = True
+                _rg_accum.clear()
+                return
+            if (
+                _rg_state["flat"]
+                and _rg_state["pending"] * 4 < _rg_state["flat"]
+                and _rg_state["idle"] < 4
+            ):
+                return  # defer the rebuild while new contigs keep arriving
+            bp._ensure_refs(_rg_accum)
+            _rg_state["flat"] = total
+            _rg_state["pending"] = 0
+            _rg_state["idle"] = 0
+
+    def start_batch(lines, rec_base, expect_nrec=None):
+        """Parse + stage; returns a context dict (kept == 0 when the whole
+        block was filtered out — the parse counter deltas still ride in
+        it).  The stat deltas are folded in emit()."""
+        t0 = _time.perf_counter() if _PROF else 0.0
+        staged = nat.parse_stage_batch(
+            lines, refmap, FLAG_SKIP, primary_mask, 4, 2, 2,
+        )
+        if _PROF:
+            t0 = _tick("parse_stage", t0)
+        if expect_nrec is not None and staged["n_records"] != expect_nrec:
+            raise RuntimeError(
+                "scan/parse record count mismatch: "
+                f"{staged['n_records']} != {expect_nrec}"
+            )
+        parse_stats = (
+            staged["flags_not_matched"],
+            staged["ref_id_missing"],
+            staged["seq_missing"],
+        )
+        kept = staged["kept"]
+        if kept == 0:
+            return {"kept": 0, "parse_stats": parse_stats}
+        fields = np.frombuffer(staged["fields"], np.int32).reshape(kept, 7)
+        ref_id = fields[:, 1]
+
+        if shard_check:
+            bad = src_dev[ref_id] < 0
+            if bad.any():
+                i = int(np.argmax(bad))
+                name = input_header.ref_names[int(ref_id[i])]
+                raise ValueError(
+                    f"record references {name!r}, which is outside this "
+                    "index shard (--msa-index-chr-shard); route the input "
+                    "with panvc3_split_alignments_by_reference first"
+                )
+        dst_rids = rim[ref_id]
+        snap = ref_seqs.require(int(r) for r in np.unique(dst_rids))
+        _ingest_refs(snap)
+
+        # host mate projection on the event prefix sums, per distinct mate
+        # reference (project_position)
+        mate_dst = np.full(kept, -1, dtype=np.int32)
+        mrid = fields[:, 4]
+        mpos = fields[:, 5]
+        mask = (mrid >= 0) & (mpos >= 0)
+        if mask.any():
+            for mr in np.unique(mrid[mask]):
+                sel = mask & (mrid == mr)
+                pe = event_geo.events[int(mr)]
+                if pe is not None:
+                    sgv = event_geo.src_gv[int(mr)]
+                    u = np.clip(mpos[sel], 0, max(0, sgv.n_zeros - 1))
+                    mate_dst[sel] = project_unit(pe, u).astype(np.int32)
+                else:
+                    dst_e = dst_entries[int(rim[mr])]
+                    mate_dst[sel] = src_entries[int(mr)].project_position(
+                        mpos[sel], dst_e
+                    )
+        if _PROF:
+            _tick("mate_project", t0)
+
+        return {
+            "staged": staged,
+            "fields": fields,
+            "dst_rids": np.ascontiguousarray(dst_rids),
+            "kept": kept,
+            "rec_base": rec_base,
+            "parse_stats": parse_stats,
+            "mate_dst": mate_dst,
+            "R": staged["R"],
+            "Lq": staged["Lq"],
+            "snap": snap,
+        }
+
+    def finish_rewrite(ctx):
+        """Event geometry, finalize + detect runs, then the realign lane:
+        host C DP, deferred to the writer's aggregate dispatch, or a
+        per-batch device dispatch."""
+        if ctx is None or ctx["kept"] == 0:
+            return ctx
+        staged = ctx["staged"]
+        t0 = _time.perf_counter() if _PROF else 0.0
+        fields = ctx["fields"]
+        dst_pos_a, gapbits, d_vals, d_pos, d_n, use_full, d_full = (
+            event_geo.batch(
+                fields[:, 1],
+                fields[:, 2],
+                np.frombuffer(staged["n_ref_units"], np.int32),
+                ctx["R"],
+                D_SPARSE_SLOTS,
+            )
+        )
+        d_full = np.ascontiguousarray(d_full)
+        if _PROF:
+            t0 = _tick("event_geometry", t0)
+        snap = ctx["snap"]
+        ref_list = [snap.get(rid, b"") for rid in range(len(dst_entries))]
+        run_ops_b, run_lens_b, runs_per_rec_b, indel_b = (
+            nat.finalize_reconstruct(
+                staged["unit_op"],
+                staged["unit_count"],
+                staged["n_units"],
+                dst_pos_a,
+                d_vals,
+                d_pos,
+                d_n,
+                D_SPARSE_SLOTS,
+                d_full,
+                int(use_full),
+                gapbits,
+                ctx["R"],
+                staged["query"],
+                ctx["Lq"],
+                ref_list,
+                ctx["dst_rids"],
+            )
+        )
+        nruns = len(indel_b) // 36
+        if _PROF:
+            t0 = _tick("finalize", t0)
+        ctx.update(
+            dst_pos=dst_pos_a,
+            run_ops=run_ops_b,
+            run_lens=run_lens_b,
+            runs_per_rec=runs_per_rec_b,
+            indel=indel_b,
+            rh=None,
+            rh_wire=False,
+            host_dp=None,
+            steps=0,
+        )
+        if not nruns:
+            return ctx
+
+        t0 = _time.perf_counter_ns()
+        ref_b, q_b, rl_b, ql_b, Rp, Qp, S, _rq_b, _qq_b = nat.stage_realign_runs(
+            indel_b, ctx["dst_rids"], ref_list, staged["query"],
+            ctx["Lq"], 8, 8, 256,
+            staged["arena"], staged["spans"], 0,
+        )
+        ctx["steps"] = Rp + Qp
+        if host_dp_eligible:
+            rl_a = np.frombuffer(rl_b, np.int32)
+            ql_a = np.frombuffer(ql_b, np.int32)
+            real_cells = int(rl_a.astype(np.int64) @ ql_a.astype(np.int64))
+            if host_dp_cells is not None:
+                use_host = real_cells <= host_dp_cells
+            else:
+                use_host = adapt.decide(real_cells)
+            if use_host:
+                t_dp = _time.perf_counter_ns()
+                ops_b, cnt_b = nat.realign_runs_host(
+                    ref_b, q_b, rl_b, ql_b, Rp, Qp, float(go), float(ge),
+                )
+                ctx["host_dp"] = (
+                    np.frombuffer(ops_b, np.int8),
+                    np.frombuffer(cnt_b, np.int32),
+                )
+                dt_dp = _time.perf_counter_ns() - t_dp
+                if real_cells > 1000:  # skip noise-dominated samples
+                    adapt.observe_host_dp(dt_dp, real_cells)
+                ctx["stage_ns"] = _time.perf_counter_ns() - t0
+                return ctx
+        if defer_dp:
+            # device lane, deferred: the writer thread aggregates this
+            # batch's runs with the rest of its window; the per-run (dst
+            # rid, ref start) pairs let the dispatch gather reference rows
+            # on the device
+            ind_a = np.frombuffer(indel_b, np.int32).reshape(-1, 9)
+            ctx.update(
+                agg=(ref_b, q_b, rl_b, ql_b, Rp, Qp, S),
+                agg_rid_loc=(
+                    np.frombuffer(ctx["dst_rids"], np.int32)[ind_a[:, 0]],
+                    ind_a[:, 1].copy(),
+                ),
+                deferred=True,
+            )
+        else:
+            # per-batch device dispatch
+            ref = np.frombuffer(ref_b, np.uint8).reshape(S, Rp)
+            qry = np.frombuffer(q_b, np.uint8).reshape(S, Qp)
+            rl = np.frombuffer(rl_b, np.int32)
+            ql = np.frombuffer(ql_b, np.int32)
+            if (Rp + Qp) % 2 == 0 and Rp + Qp < 256:
+                wire = _realign_wire(
+                    _to_device(pack_realign_wire_input(ref, qry, rl, ql), device),
+                    go, ge, Rp, Qp,
+                )
+                rh = _DeviceFetch(wire)
+                ctx["rh_wire"] = True
+            else:
+                ops, cnt = realign_device_kernel(
+                    _to_device(ref, device), _to_device(qry, device),
+                    _to_device(rl, device), _to_device(ql, device),
+                    go, ge, None, None, False, Rp, Qp,
+                )
+                rh = _DeviceFetch(ops, cnt)
+            ctx["rh"] = rh
+            if fetch_pool is not None:
+                ctx["rfut"] = fetch_pool.submit(rh.get)
+        # folded into bp.realignment_time_ns at emit time
+        ctx["stage_ns"] = _time.perf_counter_ns() - t0
+        if _PROF:
+            with _prof_lock:
+                prof["realign_stage"] = prof.get("realign_stage", 0.0) + (
+                    ctx["stage_ns"] / 1e9
+                )
+        return ctx
+
+    def finish_realign(ctx):
+        """Fetch realignment, splice + format the batch.  Returns the emit
+        payload (blob + stat deltas); emit() folds it into shared state and
+        writes."""
+        if ctx is None:
+            return None
+        if ctx["kept"] == 0:
+            return {
+                "blob": b"", "removed": {}, "n_realn": 0, "tot_len": 0,
+                "cells": 0, "rows": None, "fetch_ns": 0, "stage_ns": 0,
+                "kept": 0, "parse_stats": ctx["parse_stats"],
+            }
+        fetch_ns = 0
+        steps = ctx["steps"]
+        if ctx.get("realn_override") is not None:
+            # aggregated dispatch: this batch's row slice of the results
+            realn_ops, realn_counts, steps = ctx["realn_override"]
+            fetch_ns = ctx.get("agg_fetch_ns", 0)
+        elif ctx["rh"] is not None:
+            t0 = _time.perf_counter_ns()
+            if ctx.get("rfut") is not None:
+                fetched = ctx["rfut"].result()
+            else:
+                fetched = ctx["rh"].get()
+            fetch_ns = _time.perf_counter_ns() - t0
+            if ctx["rh_wire"]:
+                realn_ops, realn_counts = unpack_realign_wire(fetched[0], steps)
+            else:
+                realn_ops = np.ascontiguousarray(fetched[0])
+                realn_counts = np.ascontiguousarray(fetched[1])
+        elif ctx["host_dp"] is not None:
+            realn_ops, realn_counts = ctx["host_dp"]
+        else:
+            realn_ops = np.zeros(0, np.int8)
+            realn_counts = np.zeros(0, np.int32)
+            steps = 0
+        if _PROF and fetch_ns:
+            with _prof_lock:
+                prof["realign_fetch"] = prof.get("realign_fetch", 0.0) + fetch_ns / 1e9
+
+        staged = ctx["staged"]
+        tsp = _time.perf_counter() if _PROF else 0.0
+        blob, removed, (n_realn, tot_len, cells), rows, _tasks_used = (
+            nat.splice_apply_format(
+                staged["arena"], staged["spans"], staged["line_index"],
+                staged["fields"], staged["n_ops"],
+                staged["ops"], staged["counts"], staged["O"],
+                ctx["dst_pos"], ctx["run_ops"], ctx["run_lens"],
+                ctx["runs_per_rec"], ctx["indel"],
+                realn_ops, realn_counts, steps,
+                ctx["mate_dst"], rim,
+                out_names, in_names, preserved, tag_names,
+                ctx["rec_base"], ctx["task_base"], want_ranges,
+            )
+        )
+        if _PROF:
+            _tick("splice_format", tsp)
+        return {
+            "blob": blob,
+            "removed": removed,
+            "n_realn": n_realn,
+            "tot_len": tot_len,
+            "cells": cells,
+            "rows": rows,
+            "fetch_ns": fetch_ns,
+            "stage_ns": ctx.get("stage_ns", 0),
+            "kept": ctx["kept"],
+            "parse_stats": ctx["parse_stats"],
+            "dev_realign": (
+                ctx.get("realn_override") is not None or ctx["rh"] is not None
+            ),
+        }
+
+    def emit(payload):
+        """Fold one batch's stat deltas and write its blob (single-threaded:
+        main on the serial path, the writer thread on the pooled path)."""
+        if payload is None:
+            return
+        pf, pr, ps = payload["parse_stats"]
+        stats.flags_not_matched += pf
+        stats.ref_id_missing += pr
+        stats.seq_missing += ps
+        stats.matched_reads += payload["kept"]
+        stats.realigned_range_count += payload["n_realn"]
+        stats.realigned_range_total_length += payload["tot_len"]
+        stats.realignment_cells += payload["cells"]
+        for k, v in payload["removed"].items():
+            stats.removed_tag_counts[k] = stats.removed_tag_counts.get(k, 0) + v
+        rows = payload["rows"]
+        if rows is not None and realigned_ranges is not None:
+            realigned_ranges.extend(rows)
+        state["realign_fetch_ns"] += payload["fetch_ns"]
+        state["realign_stage_ns"] += payload["stage_ns"]
+        if payload.get("dev_realign"):
+            total_ns = payload["stage_ns"] + payload["fetch_ns"]
+            if total_ns:
+                adapt.observe_dev_batch(total_ns)
+        adapt.observe_emit(
+            bool(payload.get("dev_realign")),
+            payload["kept"],
+            _time.perf_counter_ns(),
+            attribute=bool(payload["n_realn"]),
+            cells=payload["cells"],
+        )
+        tw = _time.perf_counter() if _PROF else 0.0
+        writer.write_raw(payload["blob"])
+        if _PROF:
+            _tick("write", tw)
+
+    # ---- pipeline drive --------------------------------------------------
+    # Main parses (start_batch) in order; each parsed batch runs
+    # finish_rewrite + finish_realign as one pool job; the writer thread
+    # drains the futures strictly in submission order, folding stats and
+    # writing blobs (all shared mutation stays on that thread).
+    worker_error: list[BaseException] = []
+    job_q = None
+    pool = None
+    writer_thread = None
+    if cfg.threaded_pipeline:
+        import queue as _queue
+        from concurrent.futures import ThreadPoolExecutor
+
+        try:  # respect CPU affinity
+            avail = len(os.sched_getaffinity(0))
+        except AttributeError:  # non-Linux
+            avail = os.cpu_count() or 4
+        n_pool = int(
+            os.environ.get("PANVC3_BATCH_WORKERS", "0")
+        ) or max(2, avail - 1)
+        nat.set_slab_threads(1)
+        pool = ThreadPoolExecutor(max_workers=n_pool)
+        MAX_IN_FLIGHT = max(cfg.pipeline_depth, n_pool + 1)
+        job_q = _queue.Queue(maxsize=MAX_IN_FLIGHT)
+
+        # PANVC3_FASTLANE_CHAOS=<seed>: random sub-ms sleeps at every
+        # cross-thread handoff; output bytes must not change
+        _chaos_env = os.environ.get("PANVC3_FASTLANE_CHAOS")
+        if _chaos_env:
+            import random as _random
+
+            _chaos_rng = _random.Random(int(_chaos_env))
+            _chaos_lock = threading.Lock()
+
+            def _jitter():
+                with _chaos_lock:
+                    d = _chaos_rng.random() * 0.002
+                _time.sleep(d)
+        else:
+            def _jitter():
+                pass
+
+        def _job(ctx):
+            _jitter()
+            ctx = finish_rewrite(ctx)
+            _jitter()
+            if ctx is not None and ctx.get("deferred"):
+                return ("defer", ctx)
+            return finish_realign(ctx)
+
+        def _job_full(lines, rec_base, task_base, nrec):
+            ctx = start_batch(lines, rec_base, nrec)
+            ctx["task_base"] = task_base
+            return _job(ctx)
+
+        def _dispatch_aggregate(ctxs):
+            """One realign dispatch for the pooled runs of several batches.
+            Blocks re-pad into a common (S_bucket, Rmax/Qmax) layout;
+            results come back as row slices.  Returns (parts [(lo, hi)],
+            fetch_future, steps)."""
+            _jitter()
+            t0 = _time.perf_counter_ns()
+            tp0 = _time.perf_counter()
+            # pad to the {p, 1.5p} ladder of the actual max run lengths:
+            # block columns past each row's length are zeros, so narrower
+            # pads just slice them
+            Rmax = _next_rq_bucket(max(
+                int(np.max(np.frombuffer(c["agg"][2], np.int32), initial=1))
+                for c in ctxs
+            ))
+            Qmax = _next_rq_bucket(max(
+                int(np.max(np.frombuffer(c["agg"][3], np.int32), initial=1))
+                for c in ctxs
+            ))
+            S_tot = sum(c["agg"][6] for c in ctxs)
+            S_b = _next_row_bucket(max(S_tot, 256))
+            steps = Rmax + Qmax
+            wire_ok = steps % 2 == 0 and steps < 256
+
+            # ref-gather eligibility: every run's dst contig must be in the
+            # current flat-reference snapshot (taken under bp's ref lock)
+            rg_starts = rg_flat = None
+            snap_rg = (
+                bp.ref_flat_snapshot(refgather_max_h2d)
+                if wire_ok and refgather_ok and steps % 4 == 0
+                else None
+            )
+            if snap_rg is not None:
+                flat, offmap = snap_rg
+                if flat.shape[0] <= 0xFFFFFFFF:
+                    off_lut = np.full(max(1, len(dst_entries)), -1, np.int64)
+                    for rid_, o_ in offmap.items():
+                        off_lut[rid_] = o_
+                    starts = np.zeros(S_b, np.int64)
+                    off = 0
+                    for c in ctxs:
+                        rid_arr, loc_arr = c["agg_rid_loc"]
+                        n_real = len(rid_arr)
+                        if n_real:
+                            so = off_lut[rid_arr]
+                            if (so < 0).any():
+                                starts = None
+                                break
+                            starts[off:off + n_real] = so + loc_arr
+                        off += c["agg"][6]
+                    if starts is not None:
+                        rg_starts, rg_flat = starts, flat
+
+            ref = None if rg_starts is not None else np.zeros(
+                (S_b, Rmax), np.uint8
+            )
+            qb = np.zeros((S_b, Qmax), np.uint8)
+            rl = np.zeros(S_b, np.int32)
+            ql = np.zeros(S_b, np.int32)
+            parts = []
+            off = 0
+            for c in ctxs:
+                ref_b, q_b, rl_b, ql_b, Rp, Qp, S = c["agg"]
+                rc = min(Rp, Rmax)
+                qc = min(Qp, Qmax)
+                if ref is not None:
+                    ref[off:off + S, :rc] = np.frombuffer(
+                        ref_b, np.uint8
+                    ).reshape(S, Rp)[:, :rc]
+                qb[off:off + S, :qc] = np.frombuffer(
+                    q_b, np.uint8
+                ).reshape(S, Qp)[:, :qc]
+                rl[off:off + S] = np.frombuffer(rl_b, np.int32)
+                ql[off:off + S] = np.frombuffer(ql_b, np.int32)
+                parts.append((off, off + S))
+                off += S
+
+            # length-sort the window (output order restored by inverse
+            # permutation in _restore at fetch)
+            diag["dispatches"] += 1
+            inv_order = None
+            if agg_sort and S_tot > 1:
+                key = rl[:S_tot] + ql[:S_tot]
+                if np.any(key[:-1] > key[1:]):
+                    diag["sorted"] += 1
+                    order = np.argsort(key, kind="stable")
+                    inv_order = np.empty_like(order)
+                    inv_order[order] = np.arange(len(order), dtype=order.dtype)
+                    rl[:S_tot] = rl[:S_tot][order]
+                    ql[:S_tot] = ql[:S_tot][order]
+                    qb[:S_tot] = qb[:S_tot][order]
+                    if ref is not None:
+                        ref[:S_tot] = ref[:S_tot][order]
+                    if rg_starts is not None:
+                        rg_starts[:S_tot] = rg_starts[:S_tot][order]
+
+            def _restore(o, c2):
+                _jitter()  # fetch-thread completion timing
+                if inv_order is None:
+                    return np.ascontiguousarray(o), np.ascontiguousarray(c2)
+                return (
+                    np.ascontiguousarray(o[inv_order]),
+                    np.ascontiguousarray(c2[inv_order]),
+                )
+
+            # 2-bit query wire for N-free windows; PANVC3_DP_WIRE2=0 keeps
+            # the 4-bit wire
+            wire2 = (
+                rg_starts is not None
+                and Qmax % 4 == 0
+                and os.environ.get("PANVC3_DP_WIRE2") != "0"
+                and query_wire2_eligible(qb, ql)
+            )
+            if rg_starts is not None:
+                diag["refgather"] += 1
+            if wire2:
+                diag["wire2"] += 1
+            if rg_starts is not None:
+                if wire2:
+                    packed = pack_realign_refgather2_input(qb, rg_starts, rl, ql)
+                    wire = _realign_wire_refgather2(
+                        _to_device(packed, device), rg_flat, go, ge, Rmax, Qmax
+                    )
+                else:
+                    packed = pack_realign_refgather_input(qb, rg_starts, rl, ql)
+                    wire = _realign_wire_refgather(
+                        _to_device(packed, device), rg_flat, go, ge, Rmax, Qmax
+                    )
+                res = _DeviceFetch(wire)
+
+                def _fetch():
+                    w = res.get()[0]
+                    return _restore(*unpack_realign_refgather_wire(w[:S_tot], steps))
+            elif wire_ok:
+                packed = pack_realign_wire_input(ref, qb, rl, ql)
+                res = _DeviceFetch(
+                    _realign_wire(_to_device(packed, device), go, ge, Rmax, Qmax)
+                )
+
+                def _fetch():
+                    w = res.get()[0]
+                    return _restore(*unpack_realign_wire(w[:S_tot], steps))
+            else:
+                ops, cnt = realign_device_kernel(
+                    _to_device(ref, device), _to_device(qb, device),
+                    _to_device(rl, device), _to_device(ql, device),
+                    go, ge, None, None, False, Rmax, Qmax,
+                )
+                res = _DeviceFetch(ops, cnt)
+
+                def _fetch():
+                    o, c2 = res.get()
+                    return _restore(o[:S_tot], c2[:S_tot])
+
+            # spread the shared dispatch cost across the window's batches
+            share = (_time.perf_counter_ns() - t0) // len(ctxs)
+            for c in ctxs:
+                c["stage_ns"] = c.get("stage_ns", 0) + share
+            if _PROF:
+                _tick("agg_pack_dispatch", tp0)
+                with _prof_lock:
+                    prof["agg_dispatches"] = prof.get("agg_dispatches", 0) + 1
+                    prof["agg_runs"] = prof.get("agg_runs", 0) + S_tot
+
+                inner = _fetch
+
+                def _fetch():
+                    tf0 = _time.perf_counter()
+                    out = inner()
+                    _tick("agg_fetch_wall", tf0)
+                    return out
+
+            return parts, fetch_pool.submit(_fetch), steps
+
+        def _finish_deferred(ctx, agg_fut, lo, hi, steps):
+            _jitter()
+            t0 = _time.perf_counter_ns()
+            ops_all, cnt_all = agg_fut.result()
+            ctx["agg_fetch_ns"] = _time.perf_counter_ns() - t0
+            ctx["realn_override"] = (ops_all[lo:hi], cnt_all[lo:hi], steps)
+            return finish_realign(ctx)
+
+        def _writer():
+            # Ordered drain with a DP-aggregation window: job results are
+            # payloads (emit-ready) or deferred ctxs (runs staged, realign
+            # pending).  Deferred ctxs accumulate until the window holds
+            # agg_target_runs (or agg_max_batches), then one aggregate
+            # dispatch covers them and per-batch phase-2 jobs (slice +
+            # splice) go back to the pool.  out_q preserves submission
+            # order; all shared mutation stays here.
+            import collections as _collections
+
+            out_q: _collections.deque = _collections.deque()
+            window: list = []  # (entry, ctx) pairs awaiting dispatch
+            window_runs = 0
+
+            def flush():
+                nonlocal window, window_runs
+                if not window:
+                    return
+                parts, agg_fut, steps = _dispatch_aggregate(
+                    [c for _, c in window]
+                )
+                for (entry, ctx), (lo, hi) in zip(window, parts):
+                    entry[1] = pool.submit(
+                        _finish_deferred, ctx, agg_fut, lo, hi, steps
+                    )
+                    entry[0] = "fut"
+                window = []
+                window_runs = 0
+
+            def drain(block: bool):
+                while out_q:
+                    kind, val = out_q[0]
+                    if kind == "done":
+                        emit(val)
+                        out_q.popleft()
+                    elif kind == "fut":
+                        if block or val.done():
+                            emit(val.result())
+                            out_q.popleft()
+                        else:
+                            return
+                    else:  # pending: needs a window flush first
+                        if not block:
+                            return
+                        flush()
+
+            while True:
+                fut = job_q.get()
+                _jitter()
+                if fut is None:
+                    try:
+                        flush()
+                        drain(block=True)
+                    except BaseException as exc:  # noqa: BLE001 — re-raised on main
+                        worker_error.append(exc)
+                    return
+                try:
+                    res = fut.result()
+                    if isinstance(res, tuple) and res and res[0] == "defer":
+                        ctx = res[1]
+                        entry = ["pending", ctx]
+                        out_q.append(entry)
+                        window.append((entry, ctx))
+                        window_runs += ctx["agg"][6]
+                        if (
+                            window_runs >= agg_target_runs
+                            or len(window) >= agg_max_batches
+                        ):
+                            flush()
+                    else:
+                        out_q.append(["done", res])
+                    drain(block=False)
+                    # flush-on-idle: a worthwhile window dispatches as soon
+                    # as no further staged batch is ready
+                    if window_runs >= agg_min_runs and job_q.empty():
+                        flush()
+                        drain(block=False)
+                    # a deferred head must not dam up completed payloads
+                    if (
+                        out_q
+                        and out_q[0][0] == "pending"
+                        and len(out_q) >= agg_max_batches
+                    ):
+                        flush()
+                        drain(block=False)
+                    if len(out_q) > 4 * agg_max_batches:
+                        flush()
+                        # hard cap: block on the head until the queue shrinks
+                        while len(out_q) > 2 * agg_max_batches:
+                            kind, val = out_q.popleft()
+                            emit(val.result() if kind == "fut" else val)
+                except BaseException as exc:  # noqa: BLE001 — re-raised on main
+                    worker_error.append(exc)
+                    while True:
+                        if job_q.get() is None:
+                            return
+
+        writer_thread = threading.Thread(target=_writer, daemon=True)
+        writer_thread.start()
+    else:
+        MAX_IN_FLIGHT = max(1, cfg.pipeline_depth)
+
+    import collections
+
+    in_flight: collections.deque = collections.deque()
+    realign_flight: collections.deque = collections.deque()
+
+    # PANVC3_PARSE_IN_POOL=1 parses inside the pool jobs (opt-in for wide
+    # hosts: on few cores the parse holds the GIL and convoys the jobs)
+    parse_in_pool = (
+        pool is not None and os.environ.get("PANVC3_PARSE_IN_POOL") == "1"
+    )
+
+    def submit(lines, kept_exp, nrec):
+        # record/task numbering is deterministic per batch: nrec comes from
+        # the scan mask and the task groups are ceil(kept/4), so both bases
+        # are assigned here in submission order
+        rec_base = state["rec_global"]
+        state["rec_global"] += nrec
+        task_base = state["task_counter"]
+        state["task_counter"] += (kept_exp + 3) // 4
+        if pool is not None:
+            if worker_error:
+                raise worker_error[0]
+            if parse_in_pool:
+                job_q.put(
+                    pool.submit(_job_full, lines, rec_base, task_base, nrec)
+                )
+            else:
+                ctx = start_batch(lines, rec_base, nrec)
+                ctx["task_base"] = task_base
+                job_q.put(pool.submit(_job, ctx))
+        else:
+            ctx = start_batch(lines, rec_base, nrec)
+            ctx["task_base"] = task_base
+            in_flight.append(ctx)
+            if len(in_flight) >= MAX_IN_FLIGHT:
+                realign_flight.append(finish_rewrite(in_flight.popleft()))
+                if len(realign_flight) >= MAX_IN_FLIGHT:
+                    emit(finish_realign(realign_flight.popleft()))
+
+    # Batches are formed over KEPT records (exactly batch_size per batch)
+    # so the 4-record task groups partition like the object path's chunk
+    # loop.  keep_buf entries: 2 kept, 1 skipped record, 0 whitespace-only.
+    lines_buf: list[bytes] = []
+    keep_buf = np.zeros(0, dtype=np.uint8)
+    kept_in_buf = 0
+
+    def form_batches(eof: bool = False):
+        nonlocal lines_buf, keep_buf, kept_in_buf
+        while kept_in_buf >= batch_size or (eof and lines_buf):
+            if kept_in_buf >= batch_size:
+                cut = int(
+                    np.searchsorted(
+                        np.cumsum(keep_buf == 2), batch_size
+                    )
+                ) + 1
+                batch = lines_buf[:cut]
+                nrec = int((keep_buf[:cut] >= 1).sum())
+                kept_exp = batch_size
+                lines_buf = lines_buf[cut:]
+                keep_buf = keep_buf[cut:]
+                kept_in_buf -= batch_size
+            else:
+                batch = lines_buf
+                nrec = int((keep_buf >= 1).sum())
+                kept_exp = kept_in_buf
+                lines_buf = []
+                keep_buf = np.zeros(0, dtype=np.uint8)
+                kept_in_buf = 0
+            n_before = state["rec_global"]
+            if n_before and (n_before // 10_000_000) != (
+                (n_before + nrec) // 10_000_000
+            ):
+                log_time(f"Processed {n_before + nrec} alignments…")
+            reporter.tick(n_before)
+            submit(batch, kept_exp, nrec)
+
+    try:
+        for block in reader.raw_record_line_blocks():
+            mask = np.frombuffer(
+                nat.scan_keep_mask(block, FLAG_SKIP, primary_mask), np.uint8
+            )
+            lines_buf += block
+            keep_buf = np.concatenate([keep_buf, mask])
+            kept_in_buf += int((mask == 2).sum())
+            form_batches()
+        form_batches(eof=True)
+    finally:
+        if writer_thread is not None:
+            job_q.put(None)
+            writer_thread.join()
+        if pool is not None:
+            pool.shutdown(wait=True)
+            nat.set_slab_threads(0)
+        if fetch_pool is not None:
+            fetch_pool.shutdown(wait=True)
+    if worker_error:
+        raise worker_error[0]
+    while in_flight:
+        realign_flight.append(finish_rewrite(in_flight.popleft()))
+    while realign_flight:
+        emit(finish_realign(realign_flight.popleft()))
+    bp.realignment_time_ns += state["realign_stage_ns"] + state["realign_fetch_ns"]
+    if _PROF:
+        total = sum(prof.values())
+        parts = ", ".join(f"{k} {v:.3f}s" for k, v in sorted(prof.items()))
+        log_time(f"[fastlane prof] {parts} (sum {total:.3f}s)")
+        log_time("[fastlane diag] " + json.dumps({
+            **AGG_DIAG,
+            "kernel_launches": realign_pallas_fused.LAUNCHES,
+            "device": str(device),
+        }))

@@ -1,0 +1,111 @@
+"""Synthetic founder MSAs and founder-aligned reads, made from a seed.
+
+For smoke tests and benchmarks of the port at a size users run, where the
+real founder sequences are not available: one chromosome with REF plus
+four founders (the row layout of
+``workflows/test-workflow/data/index-input/input.tsv``), each row the
+same random A/C/G/T column sequence with its own 2% of gap columns, and
+100 bp reads drawn from the gap-stripped rows with the CIGAR kinds of
+``bench.py`` (``synthesise_records``: match, deletion, insertion plus
+deletion; ``synthesise_heavy_records``: one 48I48D run per read).
+"""
+
+from __future__ import annotations
+
+import pathlib
+
+import numpy as np
+
+from panvc3_tpu.bitvec import GapBitVector
+from panvc3_tpu.msa_index import ChrEntry, MsaIndex, SequenceEntry
+
+SEQ_IDS = ("REF", "1", "2", "3", "4")
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def make_msa(n_cols: int, seed: int, gap_rate: float = 0.02) -> dict[str, bytes]:
+    """{seq id: aligned row} over ``n_cols`` columns, '-' for gaps."""
+    rng = np.random.default_rng(seed)
+    base = _ACGT[rng.integers(0, 4, n_cols, dtype=np.uint8)]
+    rows = {}
+    for sid in SEQ_IDS:
+        row = base.copy()
+        row[rng.random(n_cols, dtype=np.float32) < gap_rate] = ord("-")
+        rows[sid] = row.tobytes()
+    return rows
+
+
+def write_inputs(
+    workdir: pathlib.Path, chr_id: str, rows: dict[str, bytes]
+) -> tuple[pathlib.Path, pathlib.Path, dict[str, bytes]]:
+    """Save the MSA index and the REF FASTA; returns (index path, FASTA
+    path, {seq id: gap-stripped founder sequence})."""
+    index = MsaIndex()
+    chrom = ChrEntry(chr_id)
+    chrom.sequence_entries = [
+        SequenceEntry(sid, GapBitVector.from_gap_string(row))
+        for sid, row in rows.items()
+    ]
+    index.chr_entries.append(chrom)
+    index.sort()
+    index_path = workdir / "msa-index.npz"
+    index.save(str(index_path))
+    founders = {
+        sid: np.frombuffer(row, np.uint8)[np.frombuffer(row, np.uint8) != ord("-")].tobytes()
+        for sid, row in rows.items()
+    }
+    fasta_path = workdir / "reference.fa"
+    with open(fasta_path, "wb") as fh:
+        fh.write(f">{chr_id}\n".encode() + founders["REF"] + b"\n")
+    return index_path, fasta_path, founders
+
+
+def reads_sam(
+    chr_id: str,
+    founders: dict[str, bytes],
+    n_reads: int,
+    seed: int,
+    read_len: int = 100,
+) -> bytes:
+    """SAM text of ``n_reads`` reads: even reads take the mixed kinds
+    (match / kD / kI jD), odd reads one 48I48D run."""
+    rng = np.random.default_rng(seed)
+    sids = list(founders)
+    lines = ["@HD\tVN:1.6"]
+    for sid in sids:
+        lines.append(f"@SQ\tSN:{chr_id}/{sid}\tLN:{len(founders[sid])}")
+    half = read_len // 2
+    heavy_half = (read_len - 48) // 2
+    qual = "I" * read_len
+    picks = rng.integers(0, len(sids), n_reads)
+    for i in range(n_reads):
+        sid = sids[int(picks[i])]
+        s = founders[sid]
+        pos = int(rng.integers(0, len(s) - read_len - 16))
+        if i % 2:
+            ins = _ACGT[rng.integers(0, 4, 48)].tobytes()
+            seq = s[pos:pos + heavy_half] + ins + s[pos + heavy_half + 48:pos + read_len]
+            cigar = f"{heavy_half}=48I48D{read_len - heavy_half - 48}="
+        else:
+            kind = (i // 2) % 3
+            if kind == 0:
+                seq = s[pos:pos + read_len]
+                cigar = f"{read_len}="
+            elif kind == 1:
+                k = int(rng.integers(1, 6))
+                seq = s[pos:pos + half] + s[pos + half + k:pos + k + read_len]
+                cigar = f"{half}={k}D{read_len - half}="
+            else:
+                k = int(rng.integers(1, 6))
+                j = int(rng.integers(1, 6))
+                ins = _ACGT[rng.integers(0, 4, k)].tobytes()
+                seq = (
+                    s[pos:pos + half] + ins
+                    + s[pos + half + j:pos + half + j + (read_len - half - k)]
+                )
+                cigar = f"{half}={k}I{j}D{read_len - half - k}="
+        lines.append(
+            f"r{i}\t0\t{chr_id}/{sid}\t{pos + 1}\t60\t{cigar}\t*\t0\t0\t"
+            f"{seq.decode()}\t{qual[:len(seq)]}"
+        )
+    return ("\n".join(lines) + "\n").encode()

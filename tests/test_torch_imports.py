@@ -1,0 +1,115 @@
+"""The port imports no JAX and never falls back from CUDA to the CPU."""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "panvc3_tpu_torch"
+
+# imports every module of the port, runs a small slice of the pipeline
+# (the CLI on a tiny MSA), then checks that nothing imported JAX
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+import numpy as np
+import panvc3_tpu_torch
+for mod in pkgutil.walk_packages(panvc3_tpu_torch.__path__, "panvc3_tpu_torch."):
+    if mod.name != "panvc3_tpu_torch.__main__":
+        importlib.import_module(mod.name)
+from panvc3_tpu.bitvec import GapBitVector
+from panvc3_tpu.msa_index import ChrEntry, MsaIndex, SequenceEntry
+from panvc3_tpu_torch.cli.main import main
+
+work = sys.argv[1]
+rng = np.random.default_rng(0)
+base = rng.choice(np.frombuffer(b"ACGT", np.uint8), 600)
+rows = {}
+for k, sid in enumerate(["F", "REF"]):
+    seq = base.copy()
+    seq[rng.random(600) < 0.03] = ord("-")
+    rows[sid] = seq.tobytes()
+index = MsaIndex()
+ce = ChrEntry("c")
+ce.sequence_entries = [SequenceEntry(s, GapBitVector.from_gap_string(a)) for s, a in sorted(rows.items())]
+index.chr_entries.append(ce)
+index.sort()
+index.save(f"{work}/msa.npz")
+ref = rows["REF"].replace(b"-", b"")
+founder = rows["F"].replace(b"-", b"")
+open(f"{work}/ref.fa", "wb").write(b">c\n" + ref + b"\n")
+lines = [f"@HD\tVN:1.6\n@SQ\tSN:c/F\tLN:{len(founder)}"]
+for i in range(40):
+    pos = int(rng.integers(0, len(founder) - 60))
+    seq = founder[pos:pos + 20] + b"ACG" + founder[pos + 22:pos + 52]
+    lines.append(f"r{i}\t0\tc/F\t{pos + 1}\t60\t20=3I2D30=\t*\t0\t0\t{seq.decode()}\t" + "I" * len(seq))
+open(f"{work}/in.sam", "w").write("\n".join(lines) + "\n")
+rc = main(["project_alignments", "--device", "cpu", "-a", f"{work}/in.sam",
+           "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa", "-d", "REF",
+           "-s", "/", "-o", f"{work}/out.sam", "--status-output-interval", "0"])
+assert rc == 0
+assert sum(1 for ln in open(f"{work}/out.sam") if not ln.startswith("@")) == 40
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+print("JAX_MODULES", leaked)
+"""
+
+
+def test_port_runs_without_importing_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO), PANVC3_HOST_DP="0")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(tmp_path)],
+        env=env, capture_output=True, timeout=300, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert "JAX_MODULES []" in proc.stdout.decode(), proc.stdout.decode()
+
+
+def test_no_jax_import_statement_in_port():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.MULTILINE)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_cuda_device_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from panvc3_tpu.pipeline.project_alignments import ProjectConfig
+    from panvc3_tpu_torch.pipeline.project_alignments import run_project_alignments
+
+    cfg = ProjectConfig(msa_index_path="missing.npz", engine="device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_project_alignments(tmp_path / "in.sam", tmp_path / "out.sam", cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_project_alignments(
+            tmp_path / "in.sam", tmp_path / "out.sam", cfg, device="cuda:0"
+        )
+    # the CLI's default device is cuda as well
+    proc = subprocess.run(
+        [sys.executable, "-m", "panvc3_tpu_torch", "project_alignments",
+         "-m", "x.npz", "-r", "x.fa", "-d", "REF", "-a", "x.sam"],
+        env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        timeout=120, cwd=str(tmp_path),
+    )
+    assert proc.returncode != 0
+    assert b"torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero, printing no result line, when no card
+    is present."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")],
+        capture_output=True, timeout=120, cwd=str(REPO),
+    )
+    assert proc.returncode != 0
+    assert b'"ok"' not in proc.stdout
