@@ -9,24 +9,38 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. environment: a CUDA device is required; prints the card's name and
    power limit (nvidia-smi);
-2. builds: compiles the CUDA kernel (nvcc, sm_90a) and the C host
-   extension from the checkout's sources, printing the seconds each took;
-3. kernel vs plain version on the card: the fused realignment DP on
-   16384 runs of 48x48 (the aggregate window the main path dispatches),
-   2048 runs of 128x128 and every integer tie-break fixture, byte-equal to
-   the plain PyTorch version, with both timed;
+2. builds: compiles both CUDA sources (nvcc, sm_90a, one process each, in
+   parallel) and the C host extension from the checkout's sources,
+   printing the seconds each took;
+3. kernels vs plain versions on the card, byte-equal, both timed: K1's
+   integer and quality entries on 16384 runs of 48x48 (the aggregate
+   window the main path dispatches) and 2048 runs of 128x128, its
+   substitution entry on 4096 runs of 48x48 with an explicit
+   reference-quality tile, K2's fill on the same two shapes (every trace
+   cell), and the locked tie-break fixtures (integer ones through K1,
+   quality ones through K1's quality entry and through K2 plus the plain
+   traceback);
 4. the project_alignments slice at chromosome scale: a synthetic founder
    MSA with the 46,709,983 columns of GRCh38 chr21 (REF + 4 founders, 2%
    gap columns each) and 262,144 reads of 100 bp, projected as one process
    of the multi-host layout projects one chromosome shard
    (--msa-index-chr-shard 0/1).  After a warm-up run and a one-read setup
    probe, run 1 forces the device lane (PANVC3_HOST_DP=0) and must launch
-   the kernel through the ref-gather wires; run 2 forces the host C DP
-   lane; their SAM output must be equal.
+   K1's integer entry through the ref-gather wires; run 2 forces the host
+   C DP lane; their SAM output must be equal;
+5. the same slice with quality scoring (project_alignments -q) on the same
+   MSA and reads, now with seeded phreds: (a) the device lane must launch
+   K1's quality entry through the ref-gather and 2-bit wires, (b) the
+   split route (PANVC3_PALLAS_FUSED=0) must launch K2, (c) the host C DP
+   lane with the Malde tables; the three SAMs must be equal;
+6. batch realignment with explicit reference qualities (the library entry
+   realign_batch) on the card must launch K1's substitution entry and
+   give the host C DP's CIGARs.
 
-The second-to-last line is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}.  Every timing is printed beside the card's
-name and power limit.
+Launch counts are set to 0 just before each path of phases 4-6 and read
+just after it.  The second-to-last line is the kernels' JSON summary; the
+last line is {"ok": true, "device": {...}}.  Every timing is printed
+beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -39,13 +53,17 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-KERNEL_SOURCE = "panvc3_tpu_torch/ops/csrc/realign_fused.cu"
-KERNEL_REPLACES = "panvc3_tpu/ops/realign_pallas_fused.py:69"
+FUSED_SOURCE = "panvc3_tpu_torch/ops/csrc/realign_fused.cu"
+FILL_SOURCE = "panvc3_tpu_torch/ops/csrc/realign_fill.cu"
+K1_REPLACES = "panvc3_tpu/ops/realign_pallas_fused.py:69"
+K2_REPLACES = "panvc3_tpu/ops/realign_pallas.py:37"
 CHR21_COLUMNS = 46_709_983
 N_READS = 262_144
+MALDE_SCALE = 256.0  # panvc3_tpu.align.MALDE_SCALE
 OPS = {7: "=", 8: "X", 1: "I", 2: "D"}
 
 
@@ -75,9 +93,9 @@ def random_runs(rng, B, Q, R):
     return [torch.from_numpy(a).cuda() for a in (ref, qry, m, n)]
 
 
-def fixture_runs():
-    """Integer tie-break fixtures grouped by gap costs: (go, ge, tensors,
-    locked CIGARs)."""
+def fixture_runs(quality: bool):
+    """Tie-break fixtures grouped by gap costs: (go, ge, [ref, query, m,
+    n] on the card, query phreds or None, R, Q, locked CIGARs)."""
     import numpy as np
     import torch
 
@@ -87,22 +105,26 @@ def fixture_runs():
         if not line or line.startswith("#"):
             continue
         _kind, go, ge, s1, s2, quals, _score, cigar = line.split("\t")
-        if quals == "-":
-            groups.setdefault((int(go), int(ge)), []).append((s1, s2, cigar))
+        if (quals != "-") == quality:
+            groups.setdefault((int(go), int(ge)), []).append((s1, s2, quals, cigar))
     out = []
     for (go, ge), rows in groups.items():
         R = max(len(r[0]) for r in rows)
         Q = max(len(r[1]) for r in rows)
         ref = np.zeros((len(rows), R), np.uint8)
         qry = np.zeros((len(rows), Q), np.uint8)
+        qq = np.zeros((len(rows), Q), np.int32)
         n = np.zeros(len(rows), np.int32)
         m = np.zeros(len(rows), np.int32)
-        for b, (s1, s2, _) in enumerate(rows):
+        for b, (s1, s2, quals, _) in enumerate(rows):
             ref[b, :len(s1)] = np.frombuffer(s1.encode(), np.uint8)
             qry[b, :len(s2)] = np.frombuffer(s2.encode(), np.uint8)
             n[b], m[b] = len(s1), len(s2)
+            if quality:
+                qq[b, :len(s2)] = [int(q) for q in quals.split(",")]
         tensors = [torch.from_numpy(a).cuda() for a in (ref, qry, m, n)]
-        out.append((go, ge, tensors, R, Q, [r[2] for r in rows]))
+        qq_t = torch.from_numpy(qq).cuda() if quality else None
+        out.append((go, ge, tensors, qq_t, R, Q, [r[3] for r in rows]))
     return out
 
 
@@ -117,77 +139,197 @@ def cigar_string(ops_row, k: int) -> str:
     return "".join(f"{n}{c}" for n, c in out)
 
 
-def phase_kernel(card: str) -> dict:
+def check_cigars(ops, cnt, cigars, what: str) -> None:
+    ops_h, cnt_h = ops.cpu().numpy(), cnt.cpu().numpy()
+    for b, want in enumerate(cigars):
+        got = cigar_string(ops_h[b], int(cnt_h[b]))
+        if got != want:
+            raise AssertionError(f"{what}, fixture {b}: {got} != {want}")
+
+
+def time_ms(fn, iters: int) -> float:
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def compare(name, shape, kernel, plain, card, results) -> None:
+    """Hold one kernel call against its plain version (every output
+    element equal), then time both; record the result under ``name``."""
+    import torch
+
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"{name} != plain version at {shape}: max |diff| {err}")
+    k_ms = time_ms(kernel, 20)
+    p_ms = time_ms(plain, 2)
+    res = results.setdefault(name, {"max_abs_err": 0, "timing": {}})
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    res["timing"][shape] = (k_ms, p_ms)
+    log(
+        f"[kernel] {name} B,Q,R={shape}: kernel == plain (byte-equal); "
+        f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.3f} ms ({card})"
+    )
+
+
+def phase_kernels(card: str) -> dict:
     import numpy as np
     import torch
 
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops.realign_pallas import fill_batch
     from panvc3_tpu_torch.ops.realign_pallas_fused import (
         realign_fused,
         realign_fused_reference,
     )
 
     rng = np.random.default_rng(1)
-    max_err = 0
-    timing = {}
+    results: dict = {}
+    rows = trb.malde_rows("cuda")
+    kgo, kge = 0.0, -1.0 * MALDE_SCALE  # the CLI's gap costs, -q units
     for B, Q, R in ((16384, 48, 48), (2048, 128, 128)):
         args = random_runs(rng, B, Q, R)
-        ops, cnt = realign_fused(*args, 0.0, -1.0, R, Q)
-        ref_ops, ref_cnt = realign_fused_reference(*args, 0.0, -1.0, R, Q)
-        torch.cuda.synchronize()
-        err = max(
-            int((ops.int() - ref_ops.int()).abs().max()),
-            int((cnt - ref_cnt).abs().max()),
+        compare(
+            "realign_fused_int", (B, Q, R),
+            lambda: realign_fused(*args, 0.0, -1.0, R, Q),
+            lambda: realign_fused_reference(*args, 0.0, -1.0, R, Q),
+            card, results,
         )
-        max_err = max(max_err, err)
-        if err:
-            raise AssertionError(f"kernel != plain version at {(B, Q, R)}: max |diff| {err}")
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        iters = 20
-        start.record()
-        for _ in range(iters):
-            realign_fused(*args, 0.0, -1.0, R, Q)
-        stop.record()
-        torch.cuda.synchronize()
-        k_ms = start.elapsed_time(stop) / iters
-        start.record()
-        for _ in range(2):
-            realign_fused_reference(*args, 0.0, -1.0, R, Q)
-        stop.record()
-        torch.cuda.synchronize()
-        p_ms = start.elapsed_time(stop) / 2
-        timing[(B, Q, R)] = (k_ms, p_ms)
-        log(
-            f"[kernel] B={B} Q={Q} R={R}: kernel == plain (byte-equal); "
-            f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.3f} ms ({card})"
+        qq = torch.from_numpy(rng.integers(0, 42, (B, Q)).astype(np.int32)).cuda()
+        qual = (qq, *rows)
+        compare(
+            "realign_fused_qual", (B, Q, R),
+            lambda: realign_fused(*args, kgo, kge, R, Q, qual=qual),
+            lambda: realign_fused_reference(*args, kgo, kge, R, Q, qual=qual),
+            card, results,
         )
+        ref, qry, m, n = args
+        sub = trb._qual_scores(ref, qry, *qual)
+        compare(
+            "realign_fill_sub", (B, Q, R),
+            lambda: (fill_batch(sub, m, n, kgo, kge, R, Q),),
+            lambda: (trb._fill_batch(sub, m, n, kgo, kge, R, Q),),
+            card, results,
+        )
+        del sub
+    B, Q, R = 4096, 48, 48
+    args = random_runs(rng, B, Q, R)
+    qq = torch.from_numpy(rng.integers(0, 42, (B, Q)).astype(np.int32)).cuda()
+    rq = torch.from_numpy(rng.integers(0, 42, (B, R)).astype(np.int32)).cuda()
+    sub = trb._substitution_scores(args[0], args[1], rq, qq, True)
+    compare(
+        "realign_fused_sub", (B, Q, R),
+        lambda: realign_fused(*args, kgo, kge, R, Q, sub=sub),
+        lambda: realign_fused_reference(*args, kgo, kge, R, Q, sub=sub),
+        card, results,
+    )
+
     n_fix = 0
-    for go, ge, args, R, Q, cigars in fixture_runs():
+    for go, ge, args, _, R, Q, cigars in fixture_runs(quality=False):
         ops, cnt = realign_fused(*args, go, ge, R, Q)
         ref_ops, ref_cnt = realign_fused_reference(*args, go, ge, R, Q)
         if not (torch.equal(ops, ref_ops) and torch.equal(cnt, ref_cnt)):
-            raise AssertionError(f"kernel != plain version on fixtures go={go} ge={ge}")
-        ops_h, cnt_h = ops.cpu().numpy(), cnt.cpu().numpy()
-        for b, want in enumerate(cigars):
-            got = cigar_string(ops_h[b], int(cnt_h[b]))
-            if got != want:
-                raise AssertionError(f"fixture {b} go={go} ge={ge}: {got} != {want}")
+            raise AssertionError(f"realign_fused_int != plain version on fixtures go={go} ge={ge}")
+        check_cigars(ops, cnt, cigars, f"realign_fused_int go={go} ge={ge}")
         n_fix += len(cigars)
-    log(f"[kernel] {n_fix} integer tie-break fixtures: kernel == plain == locked CIGARs")
-    return {"max_abs_err": max_err, "timing": timing}
+    log(f"[kernel] {n_fix} integer tie-break fixtures: realign_fused_int == plain == locked CIGARs")
+    n_fix = 0
+    for go, ge, args, qq, R, Q, cigars in fixture_runs(quality=True):
+        ref, qry, m, n = args
+        qual = (qq, *rows)
+        sgo, sge = go * MALDE_SCALE, ge * MALDE_SCALE
+        ops, cnt = realign_fused(*args, sgo, sge, R, Q, qual=qual)
+        ref_ops, ref_cnt = realign_fused_reference(*args, sgo, sge, R, Q, qual=qual)
+        if not (torch.equal(ops, ref_ops) and torch.equal(cnt, ref_cnt)):
+            raise AssertionError(f"realign_fused_qual != plain version on fixtures go={go} ge={ge}")
+        check_cigars(ops, cnt, cigars, f"realign_fused_qual go={go} ge={ge}")
+        sub = trb._qual_scores(ref, qry, *qual)
+        trace = fill_batch(sub, m, n, sgo, sge, R, Q)
+        if not torch.equal(trace, trb._fill_batch(sub, m, n, sgo, sge, R, Q)):
+            raise AssertionError(f"realign_fill_sub != plain version on fixtures go={go} ge={ge}")
+        ops, cnt = trb._traceback_batch(trace, ref, qry, m, n, R, Q)
+        check_cigars(ops, cnt, cigars, f"realign_fill_sub go={go} ge={ge}")
+        n_fix += len(cigars)
+    log(
+        f"[kernel] {n_fix} quality tie-break fixtures: realign_fused_qual == plain, "
+        "realign_fill_sub == plain, both + traceback == locked CIGARs"
+    )
+    return results
 
 
 def strip_pg(sam: bytes) -> bytes:
     return b"\n".join(ln for ln in sam.split(b"\n") if not ln.startswith(b"@PG"))
 
 
-def phase_slice(card: str, seed: int, work: pathlib.Path) -> dict:
-    import torch
+def records(sam: bytes) -> list[list[bytes]]:
+    return [ln.split(b"\t") for ln in sam.split(b"\n") if ln and not ln.startswith(b"@")]
 
+
+class Tool:
+    """Runs the port's CLI entry in-process on the chr21-scale inputs."""
+
+    def __init__(self, card: str, work: pathlib.Path, index_path, fasta_path):
+        self.card, self.work = card, work
+        self.index_path, self.fasta_path = index_path, fasta_path
+
+    def run(self, tag: str, env: dict, sam: pathlib.Path, quality: bool = False):
+        """(SAM bytes, wall seconds, launches by entry, aggregate diag) of
+        one call, which also prints its reads/s and peak device memory; the
+        counts start at 0 here."""
+        import torch
+
+        from panvc3_tpu_torch.cli.main import main as cli_main
+        from panvc3_tpu_torch.ops import _kernels
+        from panvc3_tpu_torch.pipeline import fastlane
+
+        for key in ("PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS", "PANVC3_PALLAS_FUSED"):
+            os.environ.pop(key, None)
+        os.environ.update(env)
+        out_path = self.work / f"{tag}.sam"
+        argv = [
+            "project_alignments", "--device", "cuda",
+            "-a", str(sam), "-m", str(self.index_path), "-r", str(self.fasta_path),
+            "-d", "REF", "-s", "/", "--msa-index-chr-shard", "0/1",
+            "-o", str(out_path), "--status-output-interval", "0",
+        ] + (["-q"] if quality else [])
+        _kernels.reset_launches()
+        for key in fastlane.AGG_DIAG:
+            fastlane.AGG_DIAG[key] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(_kernels.LAUNCHES)
+        diag = dict(fastlane.AGG_DIAG)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if rc != 0:
+            raise RuntimeError(f"project_alignments ({tag}) exited {rc}")
+        sam_out = out_path.read_bytes()
+        n_out = len(records(sam_out))
+        if n_out != N_READS and sam.name != "one_read.sam":
+            raise AssertionError(f"{tag} wrote {n_out} records, expected {N_READS}")
+        log(
+            f"[slice] {tag}: {N_READS / wall:.0f} reads/s ({wall:.2f} s, whole "
+            f"tool call incl. index/FASTA load); peak device memory {peak:.1f} MiB; "
+            f"launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+            f"aggregate diag {json.dumps(diag)} ({self.card})"
+        )
+        return sam_out, wall, launches, diag
+
+
+def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     from panvc3_tpu_torch import synth
-    from panvc3_tpu_torch.cli.main import main as cli_main
-    from panvc3_tpu_torch.ops import realign_pallas_fused
-    from panvc3_tpu_torch.pipeline import fastlane
 
     t0 = time.perf_counter()
     rows = synth.make_msa(CHR21_COLUMNS, seed)
@@ -195,72 +337,136 @@ def phase_slice(card: str, seed: int, work: pathlib.Path) -> dict:
     del rows
     sam_path = work / "reads.sam"
     sam_path.write_bytes(synth.reads_sam("chr21", founders, N_READS, seed + 1))
+    q_sam_path = work / "reads_q.sam"
+    q_sam_path.write_bytes(synth.reads_sam("chr21", founders, N_READS, seed + 1, qualities=True))
     one_read = work / "one_read.sam"
     one_read.write_bytes(synth.reads_sam("chr21", founders, 1, seed + 1))
     del founders
     log(
         f"[slice] inputs: {CHR21_COLUMNS} MSA columns x {len(synth.SEQ_IDS)} rows, "
-        f"{N_READS} reads of 100 bp ({time.perf_counter() - t0:.1f} s to make)"
+        f"{N_READS} reads of 100 bp, with and without seeded phreds 2..41 "
+        f"({time.perf_counter() - t0:.1f} s to make)"
     )
-
-    def run(tag: str, env: dict, sam: pathlib.Path = sam_path) -> tuple[bytes, float]:
-        for key in ("PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS"):
-            os.environ.pop(key, None)
-        os.environ.update(env)
-        out_path = work / f"{tag}.sam"
-        argv = [
-            "project_alignments", "--device", "cuda",
-            "-a", str(sam), "-m", str(index_path), "-r", str(fasta_path),
-            "-d", "REF", "-s", "/", "--msa-index-chr-shard", "0/1",
-            "-o", str(out_path), "--status-output-interval", "0",
-        ]
-        t1 = time.perf_counter()
-        rc = cli_main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        if rc != 0:
-            raise RuntimeError(f"project_alignments ({tag}) exited {rc}")
-        return out_path.read_bytes(), wall
+    tool = Tool(card, work, index_path, fasta_path)
+    device = {"PANVC3_HOST_DP": "0"}
+    host = {"PANVC3_HOST_DP_CELLS": str(10**18)}
 
     # warm-up: the first device-lane run in a process also pays one-time
     # costs (lazy loading of PyTorch's kernels, the first pinned buffers)
-    _, cold_wall = run("cold", {"PANVC3_HOST_DP": "0"})
-    # setup probe: the same index and reference with one read (no
-    # realignment); its wall time is the tool's fixed cost per call (index
-    # load, event tables, FASTA parse, flat-reference upload)
-    _, setup_wall = run("setup", {"PANVC3_HOST_DP": "0"}, one_read)
-    log(
-        f"[slice] first device-lane run in the process {cold_wall:.2f} s; "
-        f"setup probe (1 read) {setup_wall:.2f} s ({card})"
-    )
+    tool.run("cold", device, sam_path)
+    # setup probe: one read (no realignment); its wall time is the tool's
+    # fixed cost per call (index load, event tables, FASTA parse, upload)
+    tool.run("setup", device, one_read)
 
-    # run 1: every realignment on the device lane; counts start at 0 here
-    realign_pallas_fused.reset_launches()
-    for key in fastlane.AGG_DIAG:
-        fastlane.AGG_DIAG[key] = 0
-    torch.cuda.reset_peak_memory_stats()
-    dev_sam, dev_wall = run("device", {"PANVC3_HOST_DP": "0"})
-    launches = realign_pallas_fused.LAUNCHES
-    diag = dict(fastlane.AGG_DIAG)
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    log(f"[slice] device lane: kernel launches {launches}, aggregate diag {json.dumps(diag)}")
-    if launches <= 0 or diag["refgather"] <= 0 or diag["wire2"] <= 0:
-        raise AssertionError("the device lane did not go through the kernel and the ref-gather wires")
-
-    host_sam, host_wall = run("host", {"PANVC3_HOST_DP_CELLS": str(10**18)})
-    n_out = sum(1 for ln in dev_sam.split(b"\n") if ln and not ln.startswith(b"@"))
-    if n_out != N_READS:
-        raise AssertionError(f"device lane wrote {n_out} records, expected {N_READS}")
+    # phase 4: integer scoring
+    dev_sam, _, launches, diag = tool.run("int-device", device, sam_path)
+    used = {"realign_fused_int": launches["realign_fused_int"]}
+    if used["realign_fused_int"] <= 0 or diag["refgather"] <= 0 or diag["wire2"] <= 0:
+        raise AssertionError("the device lane did not go through K1 and the ref-gather wires")
+    host_sam, *_ = tool.run("int-host", host, sam_path)
     if strip_pg(dev_sam) != strip_pg(host_sam):
-        raise AssertionError("device-lane SAM differs from host-lane SAM")
-    log(f"[slice] device-lane SAM == host-lane SAM ({n_out} records, @PG stripped)")
-    log(
-        f"[slice] device lane {N_READS / dev_wall:.0f} reads/s ({dev_wall:.2f} s), "
-        f"host lane {N_READS / host_wall:.0f} reads/s ({host_wall:.2f} s), "
-        f"wall time of the whole tool run incl. index/FASTA load; "
-        f"peak device memory {peak_mb:.1f} MiB ({card})"
+        raise AssertionError("integer slice: device-lane SAM differs from host-lane SAM")
+    log(f"[slice] integer: device-lane SAM == host-lane SAM ({N_READS} records, @PG stripped)")
+
+    # phase 5: quality scoring (-q) on the same MSA and reads
+    q_dev, _, launches, diag = tool.run("q-device", device, q_sam_path, quality=True)
+    used["realign_fused_qual"] = launches["realign_fused_qual"]
+    if used["realign_fused_qual"] <= 0 or diag["refgather"] <= 0 or diag["wire2"] <= 0:
+        raise AssertionError("the -q device lane did not go through K1's quality entry and the wires")
+    q_split, _, launches, _ = tool.run(
+        "q-split", {**device, "PANVC3_PALLAS_FUSED": "0"}, q_sam_path, quality=True
     )
-    return {"launches": launches}
+    used["realign_fill_sub"] = launches["realign_fill_sub"]
+    if used["realign_fill_sub"] <= 0 or launches["realign_fused_qual"]:
+        raise AssertionError("the -q split route did not go through K2 alone")
+    q_host, *_ = tool.run("q-host", host, q_sam_path, quality=True)
+    if not (strip_pg(q_dev) == strip_pg(q_split) == strip_pg(q_host)):
+        raise AssertionError("-q slice: device lane, split route and host lane SAMs differ")
+    changed = sum(
+        a[5] != b[5] for a, b in zip(records(dev_sam), records(q_dev))
+    )
+    log(
+        f"[slice] -q: device-lane SAM == split-route SAM == host-lane SAM "
+        f"({N_READS} records, @PG stripped); {changed} records' CIGARs differ "
+        "from the integer run's"
+    )
+    return used
+
+
+def phase_batch(card: str, seed: int) -> int:
+    """realign_batch with explicit reference qualities on the card, against
+    the host C DP; returns the substitution entry's launches."""
+    import numpy as np
+
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.ops import realign_batch as trb
+
+    for key in ("PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS", "PANVC3_PALLAS_FUSED"):
+        os.environ.pop(key, None)
+    rng = np.random.default_rng(seed + 7)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    refs, queries, rqs, qqs = [], [], [], []
+    for _ in range(4096):
+        r = rng.choice(letters, int(rng.integers(1, 49))).tobytes()
+        q = rng.choice(letters, int(rng.integers(1, 49))).tobytes()
+        refs.append(r)
+        queries.append(q)
+        rqs.append(rng.integers(2, 42, len(r)).astype(np.int32))
+        qqs.append(rng.integers(2, 42, len(q)).astype(np.int32))
+    os.environ["PANVC3_HOST_DP"] = "0"
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = trb.realign_batch(refs, queries, 0, -1, rqs, qqs, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["realign_fused_sub"]
+    os.environ["PANVC3_HOST_DP"] = "1"
+    os.environ["PANVC3_HOST_DP_CELLS"] = str(10**18)
+    want = trb.realign_batch(refs, queries, 0, -1, rqs, qqs)
+    for key in ("PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS"):
+        os.environ.pop(key, None)
+    if launches <= 0:
+        raise AssertionError("realign_batch with explicit qualities did not launch realign_fused_sub")
+    if got != want:
+        raise AssertionError("realign_batch on the card differs from the host C DP")
+    log(
+        f"[batch] realign_batch, {len(refs)} runs <= 48x48 with explicit reference "
+        f"qualities: {launches} launches of realign_fused_sub, CIGARs == host "
+        f"C DP; {wall * 1e3:.1f} ms incl. packing and decode ({card})"
+    )
+    return launches
+
+
+def build(card: str) -> None:
+    from panvc3_tpu_torch import native
+    from panvc3_tpu_torch.ops import _kernels
+
+    times = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        fn()
+        times[key] = time.perf_counter() - t0
+
+    err: list[BaseException] = []
+
+    def host_ext():
+        try:
+            timed("native", native.get_native)
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            err.append(exc)
+
+    th = threading.Thread(target=host_ext)
+    th.start()
+    timed("cuda", _kernels.build_all)
+    th.join()
+    if err:
+        raise err[0]
+    log(
+        f"[build] CUDA kernels {times['cuda']:.1f} s (nvcc sm_90a, both sources "
+        f"in parallel), C host extension {times['native']:.1f} s"
+    )
+    for source, text in sorted(_kernels.BUILD_LOG.items()):
+        log(f"[build] ptxas, {source}:\n{text.strip()}")
 
 
 def main() -> int:
@@ -280,42 +486,39 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[env] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from panvc3_tpu_torch import native
-    from panvc3_tpu_torch.ops import _kernels
-
-    t0 = time.perf_counter()
-    _kernels.kernel("realign_fused_int")
-    t_kernel = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native.get_native()
-    t_native = time.perf_counter() - t0
-    log(f"[build] CUDA kernel {t_kernel:.1f} s (nvcc, sm_90a), C host extension {t_native:.1f} s")
-    log(_kernels.BUILD_LOG.get("realign_fused.cu", "").strip())
-
-    kern = phase_kernel(card)
+    build(card)
+    kern = phase_kernels(card)
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke-"))
     try:
-        slice_res = phase_slice(card, args.seed, work)
+        launches = phase_slices(card, args.seed, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    launches["realign_fused_sub"] = phase_batch(card, args.seed)
 
-    k_ms, p_ms = kern["timing"][(16384, 48, 48)]
-    log(json.dumps({"kernels": [{
-        "name": "realign_fused_int",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": slice_res["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    entries = []
+    for entry, source, replaces, shape in (
+        ("realign_fused_int", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48)),
+        ("realign_fused_qual", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48)),
+        ("realign_fused_sub", FUSED_SOURCE, K1_REPLACES, (4096, 48, 48)),
+        ("realign_fill_sub", FILL_SOURCE, K2_REPLACES, (16384, 48, 48)),
+    ):
+        k_ms, p_ms = kern[entry]["timing"][shape]
+        entries.append({
+            "name": entry,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[entry],
+            "max_abs_err": kern[entry]["max_abs_err"],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+        })
+    log(json.dumps({"kernels": entries}))
     log(card_line())
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
-    }}))
+    # every phase ran on cuda:0, the one card this run uses
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

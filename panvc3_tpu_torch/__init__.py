@@ -9,9 +9,9 @@ the old layout and names:
 
 - ``panvc3_tpu_torch.native``        builds and loads the C host extension
 - ``panvc3_tpu_torch.alphabet``      dna5 normalisation on tensors
-- ``panvc3_tpu_torch.ops``           the realignment DP (a hand-written CUDA
-  kernel and its plain PyTorch version), the wire functions around it and
-  the batch projector's device state
+- ``panvc3_tpu_torch.ops``           the realignment DP (hand-written CUDA
+  kernels and their plain PyTorch versions), the wire functions around it
+  and the batch projector's device state
 - ``panvc3_tpu_torch.pipeline``      the project_alignments fast lane
 - ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch project_alignments``
 

@@ -1,10 +1,15 @@
-"""Build and bind the hand-written CUDA kernels of ``ops/csrc``.
+"""Build, bind and launch the hand-written CUDA kernels of ``ops/csrc``.
 
-Each ``.cu`` file exposes a plain C function.  It is compiled by ``nvcc``
-for ``sm_90a`` into ``build/panvc3_tpu_torch/kernels/`` at first use and
-loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
-A missing ``nvcc`` or a failed build raises: nothing is replaced by the
-plain PyTorch version.
+Each ``.cu`` file exposes plain C entry points.  A file is compiled by
+``nvcc`` for ``sm_90a`` into ``build/panvc3_tpu_torch/kernels/`` at first
+use and loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds); ``build_all`` compiles every file at once, one ``nvcc`` each.
+A missing ``nvcc``, a failed build or a refused launch raises: nothing is
+replaced by the plain PyTorch version.
+
+``launch`` is the one place a kernel is started: it calls the entry,
+raises on its error code and adds one to ``LAUNCHES[name]``, the main
+path's evidence that it went through that kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_source_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, spills, shared memory) of each kernel built in
 #: this process, by source name
@@ -40,7 +46,22 @@ _SIGNATURES = {
         "realign_fused.cu",
         [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     ),
+    "realign_fused_qual": (
+        "realign_fused.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    ),
+    "realign_fused_sub": (
+        "realign_fused.cu",
+        [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    ),
+    "realign_fill_sub": (
+        "realign_fill.cu",
+        [_P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P],
+    ),
 }
+
+#: launches of each C entry since the last ``reset_launches``
+LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 
 
 def nvcc_path() -> str:
@@ -72,20 +93,45 @@ def _load_source(source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
-def kernel(name: str):
-    """The bound C entry point ``name`` (its source built on first use)."""
+def _library(source: str) -> ctypes.CDLL:
     with _lock:
-        source, argtypes = _SIGNATURES[name]
+        src_lock = _source_locks.setdefault(source, threading.Lock())
+    with src_lock:
         lib = _libs.get(source)
         if lib is None:
             lib = _libs[source] = _load_source(source)
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        return fn
+        return lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a launch."""
+def kernel(name: str):
+    """The bound C entry point ``name`` (its source built on first use)."""
+    source, argtypes = _SIGNATURES[name]
+    fn = getattr(_library(source), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_all() -> None:
+    """Build every source at once, one ``nvcc`` process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sources = sorted({src for src, _ in _SIGNATURES.values()})
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(_library, sources))
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry ``name`` (its last argument the stream), raise on a
+    non-zero cudaError_t, and count the launch."""
+    rc = kernel(name)(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    with _lock:
+        LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0

@@ -1,23 +1,38 @@
 // Fused realignment DP for Hopper: affine-gap global alignment (Gotoh),
-// fill AND traceback in one launch, integer scoring (match 0, mismatch -1).
+// fill AND traceback in one launch, in the three scoring modes of the TPU
+// kernel: integer (match 0, mismatch -1), pinned-quality Malde, and
+// explicit substitution scores.
 //
 // Replaces panvc3_tpu/ops/realign_pallas_fused.py::_kernel (launched by
-// realign_fused_pallas) in its integer mode.  Output is byte-identical:
-// ops int8[B, R+Q] holds the traceback's op codes in reverse (= 7, X 8,
-// I 1, D 2) followed by 127 filler, count int32[B] the number of ops.  The
-// recurrences, the 4-bit trace cell (bits 0-1 the move: 0 diag match,
-// 3 diag mismatch, 1 vert, 2 horiz; bit 2 vopen; bit 3 hopen) and the tie
-// order (diag >= vert > horiz, open >= extend) are the Pallas kernel's.
+// realign_fused_pallas).  Output is byte-identical: ops int8[B, R+Q] holds
+// the traceback's op codes in reverse (= 7, X 8, I 1, D 2) followed by 127
+// filler, count int32[B] the number of ops.  The recurrences, the 4-bit
+// trace cell (bits 0-1 the move: 0 diag match, 3 diag mismatch, 1 vert,
+// 2 horiz; bit 2 vopen; bit 3 hopen) and the tie order (diag >= vert >
+// horiz, open >= extend) are the Pallas kernel's.  The diagonal's =/X code
+// is the byte compare in every mode; only the score depends on the mode:
+//   realign_fused_int   eq ? 0 : -1
+//   realign_fused_qual  eq ? mrow[qq[b, i-1]] : xrow[qq[b, i-1]]  (the two
+//                       64-entry Malde rows at the pinned reference
+//                       quality; a phred outside 0..63 scores 0, as the
+//                       TPU kernel's one-hot decode does)
+//   realign_fused_sub   sub[b, i-1, j-1]  (any R, Q: the tile lives in
+//                       global memory, not in a TPU's VMEM)
+// One template on the scoring mode holds the fill and the traceback.
 //
 // Design.  One thread per run.  Each thread walks only its own m x n cells
 // and its own <= m+n traceback steps, so a window sorted by length pays no
 // tile maximum.  Within a row the horizontal gap uses the sequential
 // recurrence h[c] = max(a[c-1] + go + ge, h[c-1] + ge), equal to the TPU
-// kernel's prefix max because every score is a small integer held exactly
-// in f32; compile with -fmad=false so no product is fused into an add.
-// The previous DP row (best, vert: f32) and the nibble-packed trace live
-// in global scratch laid out [column or word][run], so the 32 threads of a
-// warp touch 32 consecutive words.
+// kernel's prefix max because every score is an integer held exactly in
+// f32 (Malde scores in 1/256 units, exact while R+Q <= 5461); compile with
+// -fmad=false so no product is fused into an add.  The previous DP row
+// (best, vert: f32) and the nibble-packed trace live in global scratch
+// laid out [column or word][run], so the 32 threads of a warp touch 32
+// consecutive words.  The quality mode reads its two row scores once per
+// DP row; the substitution mode reads its tile row by row, each thread
+// along its own contiguous row (uncoalesced across the warp, served from
+// L1/L2).
 //
 // What bounds it on the H100.  Not bandwidth: a 48x48 run moves ~18 KB of
 // scratch, mostly L1/L2 hits, and 16384 runs of trace (~22 MB) fit in the
@@ -34,11 +49,18 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int THREADS = 64;
 
-__global__ void __launch_bounds__(THREADS) realign_fused_int_kernel(
+enum Scoring { INT_SCORES, QUAL_SCORES, SUB_SCORES };
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) realign_fused_kernel(
     const uint8_t* __restrict__ ref,     // [B, R]
     const uint8_t* __restrict__ query,   // [B, Q]
     const int32_t* __restrict__ qlen,    // [B]  m
     const int32_t* __restrict__ rlen,    // [B]  n
+    const int32_t* __restrict__ qq,      // [B, Q] query phreds (QUAL)
+    const float* __restrict__ mrow,      // [64] match scores (QUAL)
+    const float* __restrict__ xrow,      // [64] mismatch scores (QUAL)
+    const float* __restrict__ sub,       // [B, Q, R] (SUB)
     float go, float ge, int B, int R, int Q,
     float* __restrict__ best,            // [R+1, B] scratch
     float* __restrict__ vert,            // [R+1, B] scratch
@@ -78,6 +100,16 @@ __global__ void __launch_bounds__(THREADS) realign_fused_int_kernel(
     // -- fill rows 1..m
     for (int i = 1; i <= m; ++i) {
         const uint8_t qch = qrow[i - 1];
+        // the row's match / mismatch scores (QUAL, INT) or score row (SUB)
+        float sm = 0.0f;
+        float sx = -1.0f;
+        if (MODE == QUAL_SCORES) {
+            const int p = qq[(size_t)b * Q + i - 1];
+            const bool ok = p >= 0 && p < 64;
+            sm = ok ? mrow[p] : 0.0f;
+            sx = ok ? xrow[p] : 0.0f;
+        }
+        const float* srow = MODE == SUB_SCORES ? sub + ((size_t)b * Q + i - 1) * R : nullptr;
         const float border = go + ge * (float)i;
         const float bp0 = best[b];
         const float vp0 = vert[b];
@@ -101,7 +133,8 @@ __global__ void __launch_bounds__(THREADS) realign_fused_int_kernel(
             const bool vopen = v_open >= v_ext;
             const float vv = fmaxf(v_open, v_ext);
             const bool eq = rrow[c - 1] == qch;
-            const float diag = diag_src + (eq ? 0.0f : -1.0f);
+            const float s = MODE == SUB_SCORES ? srow[c - 1] : (eq ? sm : sx);
+            const float diag = diag_src + s;
             const float a = fmaxf(diag, vv);
             const float h = fmaxf(a_prev + go + ge, h_prev + ge);
             const bool hopen = b_prev + go >= h_prev;
@@ -153,24 +186,60 @@ __global__ void __launch_bounds__(THREADS) realign_fused_int_kernel(
     for (int s = k; s < R + Q; ++s) orow[s] = 127;
 }
 
+template <int MODE>
+int launch(const void* ref, const void* query, const void* qlen, const void* rlen,
+           const void* qq, const void* mrow, const void* xrow, const void* sub,
+           float go, float ge, int B, int R, int Q,
+           void* best, void* vert, void* trace, void* ops, void* count,
+           void* stream)
+{
+    if (B > 0) {
+        const int blocks = (B + THREADS - 1) / THREADS;
+        realign_fused_kernel<MODE><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)ref, (const uint8_t*)query,
+            (const int32_t*)qlen, (const int32_t*)rlen,
+            (const int32_t*)qq, (const float*)mrow, (const float*)xrow,
+            (const float*)sub, go, ge, B, R, Q,
+            (float*)best, (float*)vert, (uint32_t*)trace,
+            (int8_t*)ops, (int32_t*)count);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Launches on ``stream`` and
-// returns cudaGetLastError(); the caller allocates every buffer.
+// Plain C entry points (loaded with ctypes).  Each launches on ``stream``
+// and returns cudaGetLastError(); the caller allocates every buffer.
 extern "C" int realign_fused_int(
     const void* ref, const void* query, const void* qlen, const void* rlen,
     float go, float ge, int B, int R, int Q,
     void* best, void* vert, void* trace, void* ops, void* count,
     void* stream)
 {
-    if (B > 0) {
-        const int blocks = (B + THREADS - 1) / THREADS;
-        realign_fused_int_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)ref, (const uint8_t*)query,
-            (const int32_t*)qlen, (const int32_t*)rlen,
-            go, ge, B, R, Q,
-            (float*)best, (float*)vert, (uint32_t*)trace,
-            (int8_t*)ops, (int32_t*)count);
-    }
-    return (int)cudaGetLastError();
+    return launch<INT_SCORES>(ref, query, qlen, rlen, nullptr, nullptr, nullptr,
+                              nullptr, go, ge, B, R, Q, best, vert, trace, ops,
+                              count, stream);
+}
+
+extern "C" int realign_fused_qual(
+    const void* ref, const void* query, const void* qlen, const void* rlen,
+    const void* qq, const void* mrow, const void* xrow,
+    float go, float ge, int B, int R, int Q,
+    void* best, void* vert, void* trace, void* ops, void* count,
+    void* stream)
+{
+    return launch<QUAL_SCORES>(ref, query, qlen, rlen, qq, mrow, xrow, nullptr,
+                               go, ge, B, R, Q, best, vert, trace, ops, count,
+                               stream);
+}
+
+extern "C" int realign_fused_sub(
+    const void* ref, const void* query, const void* qlen, const void* rlen,
+    const void* sub, float go, float ge, int B, int R, int Q,
+    void* best, void* vert, void* trace, void* ops, void* count,
+    void* stream)
+{
+    return launch<SUB_SCORES>(ref, query, qlen, rlen, nullptr, nullptr, nullptr,
+                              sub, go, ge, B, R, Q, best, vert, trace, ops,
+                              count, stream);
 }

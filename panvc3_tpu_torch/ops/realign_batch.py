@@ -1,31 +1,45 @@
 """Batched affine-gap global realignment on tensors, and its wire formats.
 
-Counterpart of ``panvc3_tpu.ops.realign_batch`` on its integer scoring
-path:
+Counterpart of ``panvc3_tpu.ops.realign_batch``:
 
 - ``_substitution_scores``, ``_fill_batch`` and ``_traceback_batch`` are
-  the plain PyTorch DP (the reference for the CUDA kernel, and the CPU
+  the plain PyTorch DP (the reference for the CUDA kernels, and the CPU
   path), with the same recurrences and tie order (diag >= vert > horiz,
   open >= extend) as the TPU scans; ``torch.cummax`` gives the row's
   horizontal-gap prefix maximum;
-- ``realign_device_kernel`` and the three wire functions
-  (``_realign_wire``, ``_realign_wire_refgather``,
-  ``_realign_wire_refgather2``) decode their input, gather reference rows,
-  run the DP through ``realign_pallas_fused.realign_fused`` and pack the
-  ops;
+- ``_dp`` routes one batch: K1, the fused kernel
+  (``realign_pallas_fused.realign_fused``), or, under
+  ``PANVC3_PALLAS_FUSED=0``, the split route: the substitution scores,
+  K2's fill (``fill_dispatch``) and the plain ``_traceback_batch``;
+- ``realign_device_kernel`` and the wire functions (three integer, three
+  quality ``_q``) decode their input, gather reference rows, run ``_dp``
+  and pack the ops;
+- ``realign_batch``/``realign_batch_start``/``realign_batch_finish`` align
+  lists of byte strings (host C DP for small batches, else ``_dp``),
+  with pinned or explicit reference qualities;
 - the numpy host helpers and tables are copies of the originals (which
-  live in a module that imports JAX).
+  live in a module that imports JAX); the Malde tables are imported from
+  ``panvc3_tpu.align``.
 
-Scores are small integers, exact in f32, so every implementation is
-byte-identical.
+Scores are integers exact in f32 (the quality scheme in 1/``MALDE_SCALE``
+units, gap costs scaled to match, while R+Q <= 5461), so every
+implementation is byte-identical.
 """
 
 from __future__ import annotations
 
+import functools
+import os
+
 import numpy as np
 import torch
 
+from panvc3_tpu.align import MALDE_SCALE, malde_tables
+from panvc3_tpu.alphabet import PHRED42_MAX
+from panvc3_tpu.cigar import CODE_TO_OP, Cigar
+
 from ..alphabet import dna5_normalise_device
+from .realign_pallas import fill_batch
 from .realign_pallas_fused import realign_fused
 
 NEG = -1e30
@@ -37,12 +51,50 @@ _TR_HORIZ = 2
 # op codes the traceback emits (panvc3_tpu.cigar: = 7, X 8, I 1, D 2)
 _EQ, _X, _I, _D = 7, 8, 1, 2
 
+#: longest run (R+Q) the quantised quality scores keep exact in f32
+#: (panvc3_tpu.align.MALDE_SHIFT)
+QUAL_MAX_STEPS = 5461
 
-def _substitution_scores(ref, query):
-    """s[b, i, j] for query i vs ref j, integer scheme: 0 on a match,
-    -1 otherwise.  ref/query are uint8 (B, R)/(B, Q)."""
+
+@functools.lru_cache(maxsize=None)
+def _malde(device: str):
+    """The quantised Malde tables as f32 tensors on ``device``: (match
+    (64, 64), mismatch (64, 64)), indexed [ref phred, query phred]."""
+    mt, xt = malde_tables()
+    return tuple(torch.from_numpy(t.astype(np.float32)).to(device) for t in (mt, xt))
+
+
+def malde_rows(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The match and mismatch rows at the pinned reference quality
+    (phred42 max, the reference's rule), f32 ``(64,)`` on ``device``."""
+    mt, xt = _malde(str(device))
+    return mt[PHRED42_MAX], xt[PHRED42_MAX]
+
+
+def _qual_scores(ref, query, qq, mrow, xrow):
+    """Pinned-quality scores: s[b, i, j] = mrow[qq[b, i]] on a match,
+    xrow[qq[b, i]] otherwise; a phred outside 0..63 scores 0 (the TPU
+    kernel's one-hot decode)."""
+    ok = (qq >= 0) & (qq < 64)
+    idx = qq.long().clamp(0, 63)
+    sm = torch.where(ok, mrow[idx], 0.0)[:, :, None]
+    sx = torch.where(ok, xrow[idx], 0.0)[:, :, None]
+    return torch.where(query[:, :, None] == ref[:, None, :], sm, sx)
+
+
+def _substitution_scores(ref, query, ref_qual=None, query_qual=None, use_quality=False):
+    """s[b, i, j] for query i vs ref j; ref/query are uint8 (B, R)/(B, Q).
+    Integer scheme: 0 on a match, -1 otherwise.  Quality scheme: the
+    quantised Malde tables gathered at [ref phred, query phred], with
+    ``ref_qual=None`` meaning every reference phred pinned to phred42 max."""
     eq = query[:, :, None] == ref[:, None, :]
-    return torch.where(eq, 0.0, -1.0).to(torch.float32)
+    if not use_quality:
+        return torch.where(eq, 0.0, -1.0).to(torch.float32)
+    if ref_qual is None:
+        return _qual_scores(ref, query, query_qual, *malde_rows(ref.device))
+    mt, xt = _malde(str(ref.device))
+    idx = ref_qual[:, None, :].long() * mt.shape[1] + query_qual[:, :, None].long()
+    return torch.where(eq, mt.reshape(-1)[idx], xt.reshape(-1)[idx])
 
 
 def _fill_batch(sub, m, n, go, ge, R: int, Q: int):
@@ -170,18 +222,55 @@ def _traceback_batch(trace, ref, query, m, n, R: int, Q: int):
     return ops, k.to(torch.int32)
 
 
+def fill_dispatch(sub, m, n, go, ge, R: int, Q: int):
+    """DP fill of the split route: K2 (``realign_pallas.fill_batch``) on
+    CUDA tensors, the plain ``_fill_batch`` on CPU tensors.  The port does
+    not read ``PANVC3_PALLAS_FILL``: that opt-in guards a TPU compiler
+    stall."""
+    return fill_batch(sub, m, n, go, ge, R, Q)
+
+
+def _use_fused_pallas() -> bool:
+    """``PANVC3_PALLAS_FUSED=0`` selects the split route (K2's fill, then
+    the plain traceback); unset or ``1`` selects K1."""
+    return os.environ.get("PANVC3_PALLAS_FUSED") != "0"
+
+
+def _dp(ref, query, m, n, go, ge, R: int, Q: int, sub=None, qual=None):
+    """One batch of runs through K1, or through the split route under
+    ``PANVC3_PALLAS_FUSED=0``; scoring as ``realign_fused`` takes it
+    (integer, ``qual=(qq, mrow, xrow)`` or ``sub``).  Returns (ops, count)."""
+    if _use_fused_pallas():
+        return realign_fused(ref, query, m, n, go, ge, R, Q, sub=sub, qual=qual)
+    if sub is None:
+        sub = _qual_scores(ref, query, *qual) if qual is not None else _substitution_scores(ref, query)
+    trace = fill_dispatch(sub, m, n, go, ge, R, Q)
+    return _traceback_batch(trace, ref, query, m, n, R, Q)
+
+
+def _qual_dp(ref, query, qq, ql, rl, go, ge, R: int, Q: int):
+    """Quality-scored DP with pinned reference qualities (gap costs arrive
+    scaled by ``MALDE_SCALE``)."""
+    rows = malde_rows(ref.device)
+    return _dp(ref, query, ql, rl, go, ge, R, Q, qual=(qq.to(torch.int32).contiguous(), *rows))
+
+
 def realign_device_kernel(
     ref, query, ref_len, query_len, go, ge, ref_qual, query_qual,
     use_quality: bool, R: int, Q: int,
 ):
     """Unwired DP dispatch: ref/query uint8 (B, R)/(B, Q), lengths int32
-    (B,).  Integer scoring only."""
-    if use_quality:
-        raise NotImplementedError(
-            "realign_device_kernel: quality scoring (-q) is ROADMAP Queue 1 "
-            "item 1"
-        )
-    return realign_fused(ref, query, query_len, ref_len, go, ge, R, Q)
+    (B,).  Quality scoring with ``ref_qual=None`` (the reference's pinned
+    rule) runs K1's quality entry; an explicit ``ref_qual`` (B, R) runs its
+    substitution entry at any R, Q."""
+    if use_quality and ref_qual is None:
+        return _qual_dp(ref, query, query_qual, query_len, ref_len, go, ge, R, Q)
+    sub = (
+        _substitution_scores(ref, query, ref_qual, query_qual, True).contiguous()
+        if use_quality
+        else None
+    )
+    return _dp(ref, query, query_len, ref_len, go, ge, R, Q, sub=sub)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +308,7 @@ def _realign_wire(packed_in, go, ge, R: int, Q: int):
     query = p[:, R:R + Q].contiguous()
     rl = _u16(p[:, R + Q], p[:, R + Q + 1])
     ql = _u16(p[:, R + Q + 2], p[:, R + Q + 3])
-    ops, count = realign_fused(ref, query, ql, rl, go, ge, R, Q)
+    ops, count = _dp(ref, query, ql, rl, go, ge, R, Q)
     nib = ops.view(torch.uint8) & 0xF
     packed_ops = nib[:, 0::2] | (nib[:, 1::2] << 4)
     return torch.cat(
@@ -321,7 +410,7 @@ def _realign_wire_refgather(packed_in, ref_flat, go, ge, R: int, Q: int):
     rl = _u16(tail[:, 4], tail[:, 5])
     ql = _u16(tail[:, 6], tail[:, 7])
     ref = _gather_ref(ref_flat, start, rl, R)
-    ops, count = realign_fused(ref, query, ql, rl, go, ge, R, Q)
+    ops, count = _dp(ref, query, ql, rl, go, ge, R, Q)
     return _pack_ops_2bit(ops, count)
 
 
@@ -391,7 +480,7 @@ def _realign_wire_refgather2(packed_in, ref_flat, go, ge, R: int, Q: int):
     ql = tail[:, 5].to(torch.int32)
     query = _decode_query_codes2(p[:, :quarter], Q, ql)
     ref = _gather_ref(ref_flat, start, rl, R)
-    ops, count = realign_fused(ref, query, ql, rl, go, ge, R, Q)
+    ops, count = _dp(ref, query, ql, rl, go, ge, R, Q)
     return _pack_ops_2bit(ops, count)
 
 
@@ -413,3 +502,267 @@ def _pack_ops_2bit(ops, count):
     return torch.cat(
         [packed_ops, count.clamp(max=255).to(torch.uint8)[:, None]], dim=1
     )
+
+
+# ---------------------------------------------------------------------------
+# Quality (-q) wires: the layouts of their integer twins plus the query
+# phreds (reference qualities are pinned to phred42 max, so none ship).
+# Output is the 2-bit packed traceback (steps % 4 == 0 and steps < 256).
+# Gap costs arrive scaled by MALDE_SCALE.  Input rows:
+#   classic    (R + 2Q + 4 B): [ref R | query Q | qq u8 Q | rl u16 | ql u16]
+#   ref-gather (Q/2 + Q + 8 B): [query codes | qq u8 | start u32 | rl | ql]
+#   2-bit      (Q/4 + 3Q/4 + 6 B): [codes 2-bit | qq 6-bit packed | start
+#              u32 | rl u8 | ql u8]
+# ---------------------------------------------------------------------------
+
+
+def pack_realign_wire_input_q(
+    ref: np.ndarray, query: np.ndarray, rl: np.ndarray, ql: np.ndarray,
+    qq: np.ndarray,
+) -> np.ndarray:
+    s, r = ref.shape
+    q = query.shape[1]
+    out = np.empty((s, r + 2 * q + 4), dtype=np.uint8)
+    out[:, :r] = ref
+    out[:, r:r + q] = query
+    out[:, r + q:r + 2 * q] = qq
+    out[:, r + 2 * q:r + 2 * q + 2] = (
+        rl.astype("<u2").view(np.uint8).reshape(s, 2)
+    )
+    out[:, r + 2 * q + 2:] = ql.astype("<u2").view(np.uint8).reshape(s, 2)
+    return out
+
+
+def _realign_wire_q(packed_in, go, ge, R: int, Q: int):
+    p = packed_in
+    ref = p[:, :R].contiguous()
+    query = p[:, R:R + Q].contiguous()
+    qq = p[:, R + Q:R + 2 * Q]
+    rl = _u16(p[:, R + 2 * Q], p[:, R + 2 * Q + 1])
+    ql = _u16(p[:, R + 2 * Q + 2], p[:, R + 2 * Q + 3])
+    ops, count = _qual_dp(ref, query, qq, ql, rl, go, ge, R, Q)
+    return _pack_ops_2bit(ops, count)
+
+
+def pack_realign_refgather_input_q(
+    query: np.ndarray, start: np.ndarray, rl: np.ndarray, ql: np.ndarray,
+    qq: np.ndarray,
+) -> np.ndarray:
+    s, q = query.shape
+    codes = QUERY_CODE[query]
+    half = q // 2
+    out = np.empty((s, half + q + 8), dtype=np.uint8)
+    out[:, :half] = codes[:, 0::2] | (codes[:, 1::2] << 4)
+    out[:, half:half + q] = qq
+    out[:, half + q:half + q + 4] = (
+        start.astype("<u4").view(np.uint8).reshape(s, 4)
+    )
+    out[:, half + q + 4:half + q + 6] = (
+        rl.astype("<u2").view(np.uint8).reshape(s, 2)
+    )
+    out[:, half + q + 6:] = ql.astype("<u2").view(np.uint8).reshape(s, 2)
+    return out
+
+
+def _realign_wire_refgather_q(packed_in, ref_flat, go, ge, R: int, Q: int):
+    p = packed_in
+    half = Q // 2
+    query = _decode_query_codes(p[:, :half], Q)
+    qq = p[:, half:half + Q]
+    tail = p[:, half + Q:]
+    start = _u32(tail[:, 0:4])
+    rl = _u16(tail[:, 4], tail[:, 5])
+    ql = _u16(tail[:, 6], tail[:, 7])
+    ref = _gather_ref(ref_flat, start, rl, R)
+    ops, count = _qual_dp(ref, query, qq, ql, rl, go, ge, R, Q)
+    return _pack_ops_2bit(ops, count)
+
+
+def pack_realign_refgather2_input_q(
+    query: np.ndarray, start: np.ndarray, rl: np.ndarray, ql: np.ndarray,
+    qq: np.ndarray,
+) -> np.ndarray:
+    """Query phreds are 6-bit (the Malde tables have 64 rows), so four
+    pack into three bytes; the caller checks every phred is < 64."""
+    s, q = query.shape
+    codes = QUERY_CODE2[query] & 3
+    quarter = q // 4
+    out = np.empty((s, quarter + 3 * quarter + 6), dtype=np.uint8)
+    out[:, :quarter] = (
+        codes[:, 0::4]
+        | (codes[:, 1::4] << 2)
+        | (codes[:, 2::4] << 4)
+        | (codes[:, 3::4] << 6)
+    )
+    v = qq.astype(np.uint8)
+    v0, v1, v2, v3 = v[:, 0::4], v[:, 1::4], v[:, 2::4], v[:, 3::4]
+    out[:, quarter + 0:quarter + 3 * quarter:3] = v0 | (v1 << 6)
+    out[:, quarter + 1:quarter + 3 * quarter:3] = (v1 >> 2) | (v2 << 4)
+    out[:, quarter + 2:quarter + 3 * quarter:3] = (v2 >> 4) | (v3 << 2)
+    out[:, 4 * quarter:4 * quarter + 4] = (
+        start.astype("<u4").view(np.uint8).reshape(s, 4)
+    )
+    out[:, 4 * quarter + 4] = rl.astype(np.uint8)
+    out[:, 4 * quarter + 5] = ql.astype(np.uint8)
+    return out
+
+
+def _realign_wire_refgather2_q(packed_in, ref_flat, go, ge, R: int, Q: int):
+    p = packed_in
+    quarter = Q // 4
+    tail = p[:, 4 * quarter:]
+    start = _u32(tail[:, 0:4])
+    rl = tail[:, 4].to(torch.int32)
+    ql = tail[:, 5].to(torch.int32)
+    query = _decode_query_codes2(p[:, :quarter], Q, ql)
+    # 6-bit phreds, four in three bytes; lanes past ql decode to 0
+    qb = p[:, quarter:4 * quarter].to(torch.int32)
+    b0, b1, b2 = qb[:, 0::3], qb[:, 1::3], qb[:, 2::3]
+    qq = torch.empty((p.shape[0], Q), dtype=torch.int32, device=p.device)
+    qq[:, 0::4] = b0 & 63
+    qq[:, 1::4] = (b0 >> 6) | ((b1 & 15) << 2)
+    qq[:, 2::4] = (b1 >> 4) | ((b2 & 3) << 4)
+    qq[:, 3::4] = b2 >> 2
+    lane = torch.arange(Q, dtype=torch.int32, device=p.device)[None, :]
+    qq = torch.where(lane < ql[:, None], qq, 0)
+    ref = _gather_ref(ref_flat, start, rl, R)
+    ops, count = _qual_dp(ref, query, qq, ql, rl, go, ge, R, Q)
+    return _pack_ops_2bit(ops, count)
+
+
+# ---------------------------------------------------------------------------
+# Batch realignment of byte strings (the library entry point).
+# ---------------------------------------------------------------------------
+
+#: Sentinel for ``ref_quals``: reference qualities pinned to phred42 max
+#: (the production rule) without per-run arrays.
+PINNED_REF_QUALS = object()
+
+
+def realign_batch(
+    refs: list[bytes],
+    queries: list[bytes],
+    gap_opening: int,
+    gap_extension: int,
+    ref_quals=None,
+    query_quals=None,
+    pad_ref: int | None = None,
+    pad_query: int | None = None,
+    *,
+    device="cpu",
+) -> list[Cigar]:
+    """Align each (ref, query) pair on ``device``; returns collapsed
+    per-run CIGARs."""
+    return realign_batch_finish(
+        realign_batch_start(
+            refs, queries, gap_opening, gap_extension, ref_quals,
+            query_quals, pad_ref, pad_query, device=device,
+        )
+    )
+
+
+def realign_batch_start(
+    refs: list[bytes],
+    queries: list[bytes],
+    gap_opening: int,
+    gap_extension: int,
+    ref_quals=None,
+    query_quals=None,
+    pad_ref: int | None = None,
+    pad_query: int | None = None,
+    *,
+    device="cpu",
+):
+    """Dispatch one batch; finish with :func:`realign_batch_finish`.
+    ``ref_quals`` (per-run phred arrays, or ``PINNED_REF_QUALS``) turns on
+    quality scoring with ``query_quals``.  Small batches run the host C DP
+    (``PANVC3_HOST_DP``, ``PANVC3_HOST_DP_CELLS``); the others go to
+    ``device``: K1's quality entry when every reference phred is pinned,
+    its substitution entry for explicit ones."""
+    b = len(refs)
+    if b == 0:
+        return None
+    R = pad_ref if pad_ref is not None else max(1, max(len(r) for r in refs))
+    Q = pad_query if pad_query is not None else max(1, max(len(q) for q in queries))
+    ref_arr = np.zeros((b, R), dtype=np.uint8)
+    q_arr = np.zeros((b, Q), dtype=np.uint8)
+    use_quality = ref_quals is not None
+    rq_pinned = ref_quals is PINNED_REF_QUALS
+    rq = np.full((b, R), PHRED42_MAX, dtype=np.int32)
+    qq = np.zeros((b, Q), dtype=np.int32)
+    rl = np.zeros(b, dtype=np.int32)
+    ql = np.zeros(b, dtype=np.int32)
+    for i, (r, q) in enumerate(zip(refs, queries)):
+        ref_arr[i, :len(r)] = np.frombuffer(r, dtype=np.uint8)
+        q_arr[i, :len(q)] = np.frombuffer(q, dtype=np.uint8)
+        rl[i] = len(r)
+        ql[i] = len(q)
+        if use_quality:
+            if not rq_pinned:
+                rq[i, :len(r)] = ref_quals[i]
+            if query_quals is not None:
+                qq[i, :len(q)] = query_quals[i]
+    if use_quality and R + Q > QUAL_MAX_STEPS:
+        raise ValueError(
+            f"quality-scored realignment run too long for the exact "
+            f"quantised path (R+Q={R + Q} > {QUAL_MAX_STEPS})"
+        )
+    gscale = MALDE_SCALE if use_quality else 1.0
+    threshold = _host_dp_threshold(gap_opening, gap_extension)
+    if threshold and int(rl.astype(np.int64) @ ql.astype(np.int64)) <= threshold:
+        from ..native import get_native
+
+        extra = ()
+        if use_quality:
+            mt, xt = malde_tables()
+            extra = (rq.tobytes(), qq.tobytes(), mt.tobytes(), xt.tobytes())
+        ops_b, cnt_b = get_native().realign_runs_host(
+            ref_arr.tobytes(), q_arr.tobytes(), rl.tobytes(), ql.tobytes(),
+            R, Q, float(gap_opening) * gscale, float(gap_extension) * gscale,
+            *extra,
+        )
+        return (
+            np.frombuffer(ops_b, np.int8).reshape(b, R + Q),
+            np.frombuffer(cnt_b, np.int32),
+        )
+    dev = torch.device(device)
+    ref_t, q_t, rl_t, ql_t = (torch.from_numpy(a).to(dev) for a in (ref_arr, q_arr, rl, ql))
+    rq_t = qq_t = None
+    if use_quality:
+        qq_t = torch.from_numpy(qq).to(dev)
+        if not (rq == PHRED42_MAX).all():
+            rq_t = torch.from_numpy(rq).to(dev)
+    return realign_device_kernel(
+        ref_t, q_t, rl_t, ql_t,
+        np.float32(gap_opening * gscale), np.float32(gap_extension * gscale),
+        rq_t, qq_t, use_quality, R, Q,
+    )
+
+
+def _host_dp_threshold(gap_opening, gap_extension) -> int:
+    """Real-cell count up to which the host C DP replaces the device
+    dispatch; 0 when the host DP is off (``PANVC3_HOST_DP=0``) or the gap
+    costs are not integral."""
+    if os.environ.get("PANVC3_HOST_DP") == "0":
+        return 0
+    if not (float(gap_opening).is_integer() and float(gap_extension).is_integer()):
+        return 0
+    return int(os.environ.get("PANVC3_HOST_DP_CELLS", "4000000"))
+
+
+def realign_batch_finish(out) -> list[Cigar]:
+    """Fetch and decode the CIGARs of a ``realign_batch_start`` dispatch."""
+    if out is None:
+        return []
+    ops, counts = (a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in out)
+    res: list[Cigar] = []
+    for i in range(ops.shape[0]):
+        cig: Cigar = []
+        for code in ops[i, :int(counts[i])][::-1].tolist():
+            ch = CODE_TO_OP[int(code)]
+            if cig and cig[-1][1] == ch:
+                cig[-1] = (cig[-1][0] + 1, ch)
+            else:
+                cig.append((1, ch))
+        res.append(cig)
+    return res

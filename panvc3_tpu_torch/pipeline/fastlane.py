@@ -8,7 +8,7 @@ numpy arrays between those steps.
 
 The realignment of each batch's indel runs takes one of two lanes, chosen
 per batch by a ``LaneController``: the host C DP, or the device lane,
-which runs the DP as the hand-written CUDA kernel (``ops/csrc``).  With
+which runs the DP as the hand-written CUDA kernels (``ops/csrc``).  With
 the threaded drain, device-lane batches defer their runs; the writer
 thread pools the runs of several batches into one aggregate dispatch
 (``_dispatch_aggregate``): gathered from the flat reference resident on
@@ -17,11 +17,13 @@ order at fetch.  Each dispatch copies its result into pinned host memory
 on the stream that ran the kernel and records an event after the copy;
 the fetch pool waits on that event.
 
-Covered: host event geometry (``PANVC3_EVENT_GEOMETRY`` unset or ``1``)
-and integer scoring.  ``PANVC3_EVENT_GEOMETRY=device``/``=0`` and
-quality scoring (``-q``) raise ``NotImplementedError`` naming their
-ROADMAP item.  Output is byte-identical to ``panvc3_tpu``'s fast lane and
-object path; the ordering invariants are those of the original
+Covered: host event geometry (``PANVC3_EVENT_GEOMETRY`` unset or ``1``),
+integer scoring and quality scoring (``-q``: the Malde tables with the
+reference qualities pinned to phred42 max, gap costs x ``MALDE_SCALE`` on
+every lane).  ``PANVC3_EVENT_GEOMETRY=device``/``=0`` raise
+``NotImplementedError`` naming their ROADMAP item.  Output is
+byte-identical to ``panvc3_tpu``'s fast lane and object path; the
+ordering invariants are those of the original
 (CLAUDE.md): one writer thread emits in submission order, every fetch
 goes through ``_restore``, and ``PANVC3_FASTLANE_CHAOS`` jitters every
 cross-thread handoff.
@@ -37,6 +39,7 @@ import time as _time
 import numpy as np
 import torch
 
+from panvc3_tpu.align import MALDE_SCALE, malde_tables
 from panvc3_tpu.ops.event_geometry import EventGeometry, project_unit
 from panvc3_tpu.pipeline.fastlane import (
     FLAG_SKIP,
@@ -47,14 +50,21 @@ from panvc3_tpu.pipeline.fastlane import (
 from panvc3_tpu.utils import StatusReporter, format_duration, log_time
 
 from ..native import get_native
-from ..ops import realign_pallas_fused
+from ..ops import _kernels
 from ..ops.realign_batch import (
+    QUAL_MAX_STEPS,
     _realign_wire,
+    _realign_wire_q,
     _realign_wire_refgather,
     _realign_wire_refgather2,
+    _realign_wire_refgather2_q,
+    _realign_wire_refgather_q,
     pack_realign_refgather2_input,
+    pack_realign_refgather2_input_q,
     pack_realign_refgather_input,
+    pack_realign_refgather_input_q,
     pack_realign_wire_input,
+    pack_realign_wire_input_q,
     query_wire2_eligible,
     realign_device_kernel,
     unpack_realign_refgather_wire,
@@ -91,10 +101,6 @@ def check_covered(cfg, bam: bool) -> None:
     if bam:
         raise NotImplementedError(
             "BAM input/output on the port's fast lane is ROADMAP Queue 1 item 8"
-        )
-    if cfg.use_read_base_qualities:
-        raise NotImplementedError(
-            "quality-scored realignment (-q) is ROADMAP Queue 1 item 1"
         )
     if cfg.fused_kernel:
         raise NotImplementedError(
@@ -224,6 +230,10 @@ def run_fast(
     batch_size = max(4, cfg.device_batch_size)
     go = np.float32(cfg.gap_opening_cost)
     ge = np.float32(cfg.gap_extension_cost)
+    # quality scoring (-q): the DP runs in the quantised Malde units, so
+    # every lane takes the gap costs scaled to match
+    use_quality = bool(cfg.use_read_base_qualities)
+    kgo, kge = (go * MALDE_SCALE, ge * MALDE_SCALE) if use_quality else (go, ge)
 
     # Host C DP lane (realign_runs_host, byte-identical to the kernel):
     # integral gap costs only, so f32 arithmetic is exact on both lanes.
@@ -485,13 +495,15 @@ def run_fast(
             return ctx
 
         t0 = _time.perf_counter_ns()
-        ref_b, q_b, rl_b, ql_b, Rp, Qp, S, _rq_b, _qq_b = nat.stage_realign_runs(
+        # with -q the staged query phreds are clamped to 0..41 and the
+        # reference phreds pinned to 41
+        ref_b, q_b, rl_b, ql_b, Rp, Qp, S, rq_b, qq_b = nat.stage_realign_runs(
             indel_b, ctx["dst_rids"], ref_list, staged["query"],
             ctx["Lq"], 8, 8, 256,
-            staged["arena"], staged["spans"], 0,
+            staged["arena"], staged["spans"], int(use_quality),
         )
         ctx["steps"] = Rp + Qp
-        if host_dp_eligible:
+        if host_dp_eligible and not (use_quality and Rp + Qp > QUAL_MAX_STEPS):
             rl_a = np.frombuffer(rl_b, np.int32)
             ql_a = np.frombuffer(ql_b, np.int32)
             real_cells = int(rl_a.astype(np.int64) @ ql_a.astype(np.int64))
@@ -501,8 +513,13 @@ def run_fast(
                 use_host = adapt.decide(real_cells)
             if use_host:
                 t_dp = _time.perf_counter_ns()
+                quality = ()
+                if use_quality:
+                    mt, xt = malde_tables()
+                    quality = (rq_b, qq_b, mt.tobytes(), xt.tobytes())
                 ops_b, cnt_b = nat.realign_runs_host(
-                    ref_b, q_b, rl_b, ql_b, Rp, Qp, float(go), float(ge),
+                    ref_b, q_b, rl_b, ql_b, Rp, Qp, float(kgo), float(kge),
+                    *quality,
                 )
                 ctx["host_dp"] = (
                     np.frombuffer(ops_b, np.int8),
@@ -520,7 +537,7 @@ def run_fast(
             # on the device
             ind_a = np.frombuffer(indel_b, np.int32).reshape(-1, 9)
             ctx.update(
-                agg=(ref_b, q_b, rl_b, ql_b, Rp, Qp, S),
+                agg=(ref_b, q_b, rl_b, ql_b, Rp, Qp, S, qq_b),
                 agg_rid_loc=(
                     np.frombuffer(ctx["dst_rids"], np.int32)[ind_a[:, 0]],
                     ind_a[:, 1].copy(),
@@ -533,7 +550,7 @@ def run_fast(
             qry = np.frombuffer(q_b, np.uint8).reshape(S, Qp)
             rl = np.frombuffer(rl_b, np.int32)
             ql = np.frombuffer(ql_b, np.int32)
-            if (Rp + Qp) % 2 == 0 and Rp + Qp < 256:
+            if not use_quality and (Rp + Qp) % 2 == 0 and Rp + Qp < 256:
                 wire = _realign_wire(
                     _to_device(pack_realign_wire_input(ref, qry, rl, ql), device),
                     go, ge, Rp, Qp,
@@ -541,10 +558,22 @@ def run_fast(
                 rh = _DeviceFetch(wire)
                 ctx["rh_wire"] = True
             else:
+                qq = None
+                if use_quality:
+                    if Rp + Qp > QUAL_MAX_STEPS:
+                        raise ValueError(
+                            "quality-scored realignment run too long for "
+                            f"the exact quantised path (R+Q={Rp + Qp})"
+                        )
+                    # reference phreds pinned (none ship); query phreds as u8
+                    qq = _to_device(
+                        np.frombuffer(qq_b, np.int32).reshape(S, Qp).astype(np.uint8),
+                        device,
+                    )
                 ops, cnt = realign_device_kernel(
                     _to_device(ref, device), _to_device(qry, device),
                     _to_device(rl, device), _to_device(ql, device),
-                    go, ge, None, None, False, Rp, Qp,
+                    kgo, kge, None, qq, use_quality, Rp, Qp,
                 )
                 rh = _DeviceFetch(ops, cnt)
             ctx["rh"] = rh
@@ -745,7 +774,11 @@ def run_fast(
             S_tot = sum(c["agg"][6] for c in ctxs)
             S_b = _next_row_bucket(max(S_tot, 256))
             steps = Rmax + Qmax
-            wire_ok = steps % 2 == 0 and steps < 256
+            # the -q wires return the 2-bit packed traceback: steps % 4 == 0
+            wire_ok = (
+                steps % 2 == 0 and steps < 256
+                and (not use_quality or steps % 4 == 0)
+            )
 
             # ref-gather eligibility: every run's dst contig must be in the
             # current flat-reference snapshot (taken under bp's ref lock)
@@ -782,10 +815,19 @@ def run_fast(
             qb = np.zeros((S_b, Qmax), np.uint8)
             rl = np.zeros(S_b, np.int32)
             ql = np.zeros(S_b, np.int32)
+            qq = None
+            if use_quality:
+                if Rmax + Qmax > QUAL_MAX_STEPS:
+                    raise ValueError(
+                        "quality-scored realignment run too long for the "
+                        f"exact quantised path (R+Q={Rmax + Qmax})"
+                    )
+                # reference phreds pinned (none ship); query phreds as u8
+                qq = np.zeros((S_b, Qmax), np.uint8)
             parts = []
             off = 0
             for c in ctxs:
-                ref_b, q_b, rl_b, ql_b, Rp, Qp, S = c["agg"]
+                ref_b, q_b, rl_b, ql_b, Rp, Qp, S, qq_b = c["agg"]
                 rc = min(Rp, Rmax)
                 qc = min(Qp, Qmax)
                 if ref is not None:
@@ -797,6 +839,10 @@ def run_fast(
                 ).reshape(S, Qp)[:, :qc]
                 rl[off:off + S] = np.frombuffer(rl_b, np.int32)
                 ql[off:off + S] = np.frombuffer(ql_b, np.int32)
+                if qq is not None:
+                    qq[off:off + S, :qc] = np.frombuffer(
+                        qq_b, np.int32
+                    ).reshape(S, Qp)[:, :qc]
                 parts.append((off, off + S))
                 off += S
 
@@ -816,6 +862,8 @@ def run_fast(
                     qb[:S_tot] = qb[:S_tot][order]
                     if ref is not None:
                         ref[:S_tot] = ref[:S_tot][order]
+                    if qq is not None:
+                        qq[:S_tot] = qq[:S_tot][order]
                     if rg_starts is not None:
                         rg_starts[:S_tot] = rg_starts[:S_tot][order]
 
@@ -835,13 +883,24 @@ def run_fast(
                 and Qmax % 4 == 0
                 and os.environ.get("PANVC3_DP_WIRE2") != "0"
                 and query_wire2_eligible(qb, ql)
+                and (qq is None or int(qq.max(initial=0)) < 64)
             )
             if rg_starts is not None:
                 diag["refgather"] += 1
             if wire2:
                 diag["wire2"] += 1
             if rg_starts is not None:
-                if wire2:
+                if use_quality and wire2:
+                    packed = pack_realign_refgather2_input_q(qb, rg_starts, rl, ql, qq)
+                    wire = _realign_wire_refgather2_q(
+                        _to_device(packed, device), rg_flat, kgo, kge, Rmax, Qmax
+                    )
+                elif use_quality:
+                    packed = pack_realign_refgather_input_q(qb, rg_starts, rl, ql, qq)
+                    wire = _realign_wire_refgather_q(
+                        _to_device(packed, device), rg_flat, kgo, kge, Rmax, Qmax
+                    )
+                elif wire2:
                     packed = pack_realign_refgather2_input(qb, rg_starts, rl, ql)
                     wire = _realign_wire_refgather2(
                         _to_device(packed, device), rg_flat, go, ge, Rmax, Qmax
@@ -857,19 +916,28 @@ def run_fast(
                     w = res.get()[0]
                     return _restore(*unpack_realign_refgather_wire(w[:S_tot], steps))
             elif wire_ok:
-                packed = pack_realign_wire_input(ref, qb, rl, ql)
-                res = _DeviceFetch(
-                    _realign_wire(_to_device(packed, device), go, ge, Rmax, Qmax)
-                )
+                if use_quality:
+                    packed = pack_realign_wire_input_q(ref, qb, rl, ql, qq)
+                    wire = _realign_wire_q(
+                        _to_device(packed, device), kgo, kge, Rmax, Qmax
+                    )
+                    unpack = unpack_realign_refgather_wire  # 2-bit packed ops
+                else:
+                    packed = pack_realign_wire_input(ref, qb, rl, ql)
+                    wire = _realign_wire(_to_device(packed, device), go, ge, Rmax, Qmax)
+                    unpack = unpack_realign_wire
+                res = _DeviceFetch(wire)
 
                 def _fetch():
                     w = res.get()[0]
-                    return _restore(*unpack_realign_wire(w[:S_tot], steps))
+                    return _restore(*unpack(w[:S_tot], steps))
             else:
                 ops, cnt = realign_device_kernel(
                     _to_device(ref, device), _to_device(qb, device),
                     _to_device(rl, device), _to_device(ql, device),
-                    go, ge, None, None, False, Rmax, Qmax,
+                    kgo, kge, None,
+                    None if qq is None else _to_device(qq, device),
+                    use_quality, Rmax, Qmax,
                 )
                 res = _DeviceFetch(ops, cnt)
 
@@ -1115,6 +1183,6 @@ def run_fast(
         log_time(f"[fastlane prof] {parts} (sum {total:.3f}s)")
         log_time("[fastlane diag] " + json.dumps({
             **AGG_DIAG,
-            "kernel_launches": realign_pallas_fused.LAUNCHES,
+            "kernel_launches": dict(_kernels.LAUNCHES),
             "device": str(device),
         }))

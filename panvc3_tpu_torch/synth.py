@@ -7,7 +7,9 @@ four founders (the row layout of
 same random A/C/G/T column sequence with its own 2% of gap columns, and
 100 bp reads drawn from the gap-stripped rows with the CIGAR kinds of
 ``bench.py`` (``synthesise_records``: match, deletion, insertion plus
-deletion; ``synthesise_heavy_records``: one 48I48D run per read).
+deletion; ``synthesise_heavy_records``: one 48I48D run per read), with a
+constant quality string or, for quality-scored (``-q``) runs, phreds
+drawn from the seed.
 """
 
 from __future__ import annotations
@@ -66,17 +68,22 @@ def reads_sam(
     n_reads: int,
     seed: int,
     read_len: int = 100,
+    qualities: bool = False,
 ) -> bytes:
     """SAM text of ``n_reads`` reads: even reads take the mixed kinds
-    (match / kD / kI jD), odd reads one 48I48D run."""
+    (match / kD / kI jD), odd reads one 48I48D run.  Qualities are all
+    ``I`` (phred 40), or with ``qualities`` uniform phreds 2..41 from a
+    generator of their own, so the reads are the same either way."""
     rng = np.random.default_rng(seed)
+    if qualities:
+        phreds = np.random.default_rng([seed, 1]).integers(2, 42, (n_reads, read_len))
+        quals = (phreds + 33).astype(np.uint8)
     sids = list(founders)
     lines = ["@HD\tVN:1.6"]
     for sid in sids:
         lines.append(f"@SQ\tSN:{chr_id}/{sid}\tLN:{len(founders[sid])}")
     half = read_len // 2
     heavy_half = (read_len - 48) // 2
-    qual = "I" * read_len
     picks = rng.integers(0, len(sids), n_reads)
     for i in range(n_reads):
         sid = sids[int(picks[i])]
@@ -104,8 +111,9 @@ def reads_sam(
                     + s[pos + half + j:pos + half + j + (read_len - half - k)]
                 )
                 cigar = f"{half}={k}I{j}D{read_len - half - k}="
+        qual = quals[i, :len(seq)].tobytes().decode() if qualities else "I" * len(seq)
         lines.append(
             f"r{i}\t0\t{chr_id}/{sid}\t{pos + 1}\t60\t{cigar}\t*\t0\t0\t"
-            f"{seq.decode()}\t{qual[:len(seq)]}"
+            f"{seq.decode()}\t{qual}"
         )
     return ("\n".join(lines) + "\n").encode()

@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version.
+"""Card-only tests of the port: the CUDA kernels against their plain versions.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The module imports no JAX, so on a machine with a card and no JAX it runs
@@ -48,16 +48,83 @@ def _runs(rng, B, Q, R):
     ],
 )
 def test_kernel_matches_plain_version(cuda, B, Q, R, go, ge):
+    from panvc3_tpu_torch.ops import _kernels
     from panvc3_tpu_torch.ops import realign_pallas_fused as rpf
 
     args = [t.to(cuda) for t in _runs(np.random.default_rng(B + Q + R), B, Q, R)]
-    before = rpf.LAUNCHES
+    before = _kernels.LAUNCHES["realign_fused_int"]
     ops, cnt = rpf.realign_fused(*args, go, ge, R, Q)
-    assert rpf.LAUNCHES == before + 1
+    assert _kernels.LAUNCHES["realign_fused_int"] == before + 1
     want_ops, want_cnt = rpf.realign_fused_reference(*args, go, ge, R, Q)
     torch.cuda.synchronize()
     assert torch.equal(ops, want_ops)
     assert torch.equal(cnt, want_cnt)
+
+
+_MALDE = 256.0  # panvc3_tpu.align.MALDE_SCALE
+
+
+@pytest.mark.parametrize(
+    "B,Q,R,go,ge",
+    [
+        (300, 16, 16, -6, -1),
+        (4096, 48, 48, 0, -1),
+        (512, 128, 128, -6, -1),
+        (33, 7, 29, -3, -2),
+        (1, 1, 1, 0, -1),
+    ],
+)
+@pytest.mark.parametrize("mode", ["qual", "sub"])
+def test_quality_entries_match_plain_version(cuda, mode, B, Q, R, go, ge):
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops import realign_pallas_fused as rpf
+
+    rng = np.random.default_rng(B + Q + R + 1)
+    args = [t.to(cuda) for t in _runs(rng, B, Q, R)]
+    # phreds 0..63: the staged range 0..41 and the rest of the 6-bit wire's
+    qq = torch.from_numpy(rng.integers(0, 64, (B, Q)).astype(np.int32)).to(cuda)
+    if mode == "qual":
+        kw = {"qual": (qq, *trb.malde_rows(cuda))}
+    else:
+        rq = torch.from_numpy(rng.integers(0, 42, (B, R)).astype(np.int32)).to(cuda)
+        kw = {"sub": trb._substitution_scores(args[0], args[1], rq, qq.clamp(max=41), True)}
+    name = f"realign_fused_{mode}"
+    before = _kernels.LAUNCHES[name]
+    ops, cnt = rpf.realign_fused(*args, go * _MALDE, ge * _MALDE, R, Q, **kw)
+    assert _kernels.LAUNCHES[name] == before + 1
+    want_ops, want_cnt = rpf.realign_fused_reference(*args, go * _MALDE, ge * _MALDE, R, Q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ops, want_ops)
+    assert torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.parametrize(
+    "B,Q,R",
+    [(300, 16, 16), (4096, 48, 48), (256, 128, 128), (40, 24, 48), (33, 7, 29), (1, 1, 1)],
+)
+@pytest.mark.parametrize("scores", ["integer", "malde"])
+def test_fill_kernel_matches_plain_version(cuda, scores, B, Q, R):
+    """K2: every trace cell, rows past m and columns past n included."""
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops.realign_pallas import fill_batch
+
+    rng = np.random.default_rng(B * 7 + Q + R)
+    ref, qry, m, n = [t.to(cuda) for t in _runs(rng, B, Q, R)]
+    if scores == "integer":
+        sub, go, ge = trb._substitution_scores(ref, qry), 0.0, -1.0
+    else:
+        qq = torch.from_numpy(rng.integers(0, 42, (B, Q)).astype(np.int32)).to(cuda)
+        rq = torch.from_numpy(rng.integers(0, 42, (B, R)).astype(np.int32)).to(cuda)
+        sub = trb._substitution_scores(ref, qry, rq, qq, True)
+        go, ge = -6 * _MALDE, -1 * _MALDE
+    before = _kernels.LAUNCHES["realign_fill_sub"]
+    got = fill_batch(sub, m, n, go, ge, R, Q)
+    assert _kernels.LAUNCHES["realign_fill_sub"] == before + 1
+    want = trb._fill_batch(sub, m, n, go, ge, R, Q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_kernel_rejects_mixed_devices(cuda):
@@ -69,62 +136,86 @@ def test_kernel_rejects_mixed_devices(cuda):
 
 
 @pytest.mark.parametrize("wire", ["classic", "refgather", "refgather2"])
-def test_wires_on_card_match_cpu(cuda, wire):
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("quality", [False, True], ids=["int", "q"])
+def test_wires_on_card_match_cpu(cuda, monkeypatch, wire, quality, route):
     from panvc3_tpu_torch.ops import realign_batch as trb
 
+    monkeypatch.setenv("PANVC3_PALLAS_FUSED", "1" if route == "fused" else "0")
     rng = np.random.default_rng(3)
     S, R, Q = 2000, 48, 48
     rl = rng.integers(0, R + 1, S).astype(np.int32)
     ql = rng.integers(0, Q + 1, S).astype(np.int32)
     qry = rng.choice(np.frombuffer(b"ACGT", np.uint8), (S, Q)).astype(np.uint8)
     qry = np.where(np.arange(Q)[None, :] < ql[:, None], qry, 0).astype(np.uint8)
+    qq = np.where(np.arange(Q)[None, :] < ql[:, None], rng.integers(0, 42, (S, Q)), 0).astype(np.uint8)
     flat = torch.from_numpy(rng.choice(np.frombuffer(b"ACGTacgtNn", np.uint8), 9000))
     start = rng.integers(0, 9000, S).astype(np.int64)
+    go, ge = (0.0, -1.0 * _MALDE) if quality else (0.0, -1.0)
+    q = "_q" if quality else ""
+    extra = (qq,) if quality else ()
     if wire == "classic":
         ref = rng.choice(np.frombuffer(b"ACGTN", np.uint8), (S, R)).astype(np.uint8)
         ref = np.where(np.arange(R)[None, :] < rl[:, None], ref, 0).astype(np.uint8)
-        packed = torch.from_numpy(trb.pack_realign_wire_input(ref, qry, rl, ql))
-        run = lambda p, f: trb._realign_wire(p, 0.0, -1.0, R, Q)  # noqa: E731
-    elif wire == "refgather":
-        packed = torch.from_numpy(trb.pack_realign_refgather_input(qry, start, rl, ql))
-        run = lambda p, f: trb._realign_wire_refgather(p, f, 0.0, -1.0, R, Q)  # noqa: E731
+        packed = torch.from_numpy(getattr(trb, f"pack_realign_wire_input{q}")(ref, qry, rl, ql, *extra))
+        fn = getattr(trb, f"_realign_wire{q}")
+        run = lambda p, f: fn(p, go, ge, R, Q)  # noqa: E731
     else:
-        packed = torch.from_numpy(trb.pack_realign_refgather2_input(qry, start, rl, ql))
-        run = lambda p, f: trb._realign_wire_refgather2(p, f, 0.0, -1.0, R, Q)  # noqa: E731
+        kind = "" if wire == "refgather" else "2"
+        pack = getattr(trb, f"pack_realign_refgather{kind}_input{q}")
+        packed = torch.from_numpy(pack(qry, start, rl, ql, *extra))
+        fn = getattr(trb, f"_realign_wire_refgather{kind}{q}")
+        run = lambda p, f: fn(p, f, go, ge, R, Q)  # noqa: E731
     got = run(packed.to(cuda), flat.to(cuda)).cpu()
     want = run(packed, flat)
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("chaos", [None, "5"], ids=["plain", "chaos"])
-def test_slice_on_card_matches_cpu(cuda, tmp_path, monkeypatch, chaos):
+@pytest.mark.parametrize(
+    "quality,env,entry",
+    [
+        (False, {}, "realign_fused_int"),
+        (False, {"PANVC3_FASTLANE_CHAOS": "5"}, "realign_fused_int"),
+        (True, {}, "realign_fused_qual"),
+        (True, {"PANVC3_PALLAS_FUSED": "0"}, "realign_fill_sub"),
+        (False, {"PANVC3_PALLAS_FUSED": "0"}, "realign_fill_sub"),
+    ],
+    ids=["int", "int-chaos", "q", "q-split", "int-split"],
+)
+def test_slice_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality, env, entry):
     """The whole fast lane on the device lane, card vs CPU: pinned
-    copies, events and the fetch pool on the card path, also under
-    scheduling jitter at every cross-thread handoff."""
+    copies, events and the fetch pool on the card path, with integer and
+    quality scoring, on K1 and on the split route, also under scheduling
+    jitter at every cross-thread handoff."""
     from panvc3_tpu.pipeline.project_alignments import ProjectConfig
     from panvc3_tpu_torch import synth
-    from panvc3_tpu_torch.ops import realign_pallas_fused as rpf
+    from panvc3_tpu_torch.ops import _kernels
     from panvc3_tpu_torch.pipeline import fastlane
     from panvc3_tpu_torch.pipeline.project_alignments import run_project_alignments
 
     rows = synth.make_msa(300_000, seed=5)
     index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
-    sam = synth.reads_sam("c1", founders, 6000, seed=6)
+    sam = synth.reads_sam("c1", founders, 6000, seed=6, qualities=quality)
     monkeypatch.setenv("PANVC3_HOST_DP", "0")
     outs = {}
     for dev in ("cpu", "cuda"):
-        if chaos and dev == "cuda":
-            monkeypatch.setenv("PANVC3_FASTLANE_CHAOS", chaos)
+        if dev == "cuda":
+            for key, val in env.items():
+                monkeypatch.setenv(key, val)
         cfg = ProjectConfig(
             msa_index_path=str(index_path), reference_path=str(fasta_path),
             reference_msa_id="REF", ref_id_separator="/", engine="device",
             device_batch_size=1024, status_output_interval=0,
+            use_read_base_qualities=quality,
         )
-        before = (rpf.LAUNCHES, fastlane.AGG_DIAG["wire2"])
+        before = (dict(_kernels.LAUNCHES), fastlane.AGG_DIAG["wire2"])
         out = io.BytesIO()
         run_project_alignments(io.BytesIO(sam), out, cfg, device=dev)
         outs[dev] = out.getvalue()
-        launched = rpf.LAUNCHES - before[0]
+        launched = {k: v - before[0][k] for k, v in _kernels.LAUNCHES.items()}
         assert fastlane.AGG_DIAG["wire2"] > before[1]
-        assert (launched > 0) == (dev == "cuda")
+        if dev == "cuda":
+            assert {k for k, v in launched.items() if v} == {entry}, launched
+        else:
+            assert not any(launched.values()), launched
     assert outs["cuda"] == outs["cpu"]

@@ -70,7 +70,7 @@ def _jax_host(sam, index, reference, tmp_path, **kw):
     return out.getvalue(), ranges.read_text()
 
 
-def _port_cli(sam, index, reference, tmp_path):
+def _port_cli(sam, index, reference, tmp_path, extra=()):
     sam_path = tmp_path / "in.sam"
     sam_path.write_bytes(sam)
     out_path = tmp_path / "port.sam"
@@ -88,7 +88,7 @@ def _port_cli(sam, index, reference, tmp_path):
             "-r", str(reference), "-d", "REF", "-s", "/",
             "--record-index-tag", "XI", "-t", "XA",
             "--device-batch-size", "32", "--status-output-interval", "0",
-            "-l", str(ranges), "-o", str(out_path),
+            "-l", str(ranges), "-o", str(out_path), *extra,
         ],
         env=full_env, capture_output=True, timeout=300, cwd=REPO,
     )
@@ -265,14 +265,13 @@ def test_fastlane_long_runs_match_jax(msa_files, founder_seqs, tmp_path, monkeyp
 @pytest.mark.parametrize(
     "kw,env",
     [
-        ({"use_read_base_qualities": True}, {}),
         ({"data_parallel": 2}, {}),
         ({"fused_kernel": True}, {}),
         ({"output_bam": True}, {}),
         ({}, {"PANVC3_EVENT_GEOMETRY": "device"}),
         ({}, {"PANVC3_EVENT_GEOMETRY": "0"}),
     ],
-    ids=["q", "data-parallel", "fused-kernel", "bam-out", "event-device", "gap-kernel"],
+    ids=["data-parallel", "fused-kernel", "bam-out", "event-device", "gap-kernel"],
 )
 def test_uncovered_configurations_raise(rich_case, tmp_path, monkeypatch, kw, env):
     index_path, sam, _ = rich_case

@@ -15,7 +15,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "panvc3_tpu_torch"
 
 # imports every module of the port, runs a small slice of the pipeline
-# (the CLI on a tiny MSA), then checks that nothing imported JAX
+# (the CLI on a tiny MSA, with integer and with quality scoring), then
+# checks that nothing imported JAX
 _SCRIPT = r"""
 import importlib, pkgutil, sys
 import numpy as np
@@ -50,11 +51,13 @@ for i in range(40):
     seq = founder[pos:pos + 20] + b"ACG" + founder[pos + 22:pos + 52]
     lines.append(f"r{i}\t0\tc/F\t{pos + 1}\t60\t20=3I2D30=\t*\t0\t0\t{seq.decode()}\t" + "I" * len(seq))
 open(f"{work}/in.sam", "w").write("\n".join(lines) + "\n")
-rc = main(["project_alignments", "--device", "cpu", "-a", f"{work}/in.sam",
-           "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa", "-d", "REF",
-           "-s", "/", "-o", f"{work}/out.sam", "--status-output-interval", "0"])
-assert rc == 0
-assert sum(1 for ln in open(f"{work}/out.sam") if not ln.startswith("@")) == 40
+for extra in ([], ["-q"]):
+    rc = main(["project_alignments", "--device", "cpu", "-a", f"{work}/in.sam",
+               "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa", "-d", "REF",
+               "-s", "/", "-o", f"{work}/out.sam", "--status-output-interval", "0",
+               *extra])
+    assert rc == 0
+    assert sum(1 for ln in open(f"{work}/out.sam") if not ln.startswith("@")) == 40
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
 """

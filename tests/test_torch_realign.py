@@ -236,16 +236,21 @@ def test_realign_fused_rejects_what_it_does_not_take():
     ref = torch.zeros((4, 8), dtype=torch.uint8)
     q = torch.zeros((4, 8), dtype=torch.uint8)
     m = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        realign_fused(ref, q, m, m, 0, -1, 8, 8, sub=torch.zeros((4, 8, 8)))
+    sub = torch.zeros((4, 8, 8))
+    rows = torch.zeros(64)
+    qual = (m[:, None].expand(4, 8).contiguous(), rows, rows)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        realign_fused(ref, q, m, m, 0, -1, 8, 8, sub=sub, qual=qual)
+    with pytest.raises(ValueError, match="sub must be"):
+        realign_fused(ref, q, m, m, 0, -1, 8, 8, sub=sub.double())
+    with pytest.raises(ValueError, match="qq must be"):
+        realign_fused(ref, q, m, m, 0, -1, 8, 8, qual=(q, rows, rows))
     with pytest.raises(ValueError, match="int32"):
         realign_fused(ref, q, m.long(), m, 0, -1, 8, 8)
     with pytest.raises(ValueError, match="shape"):
         realign_fused(ref, q, m, m, 0, -1, 8, 9)
     with pytest.raises(ValueError, match="contiguous"):
         realign_fused(ref, q.t().contiguous().t(), m, m, 0, -1, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trb.realign_device_kernel(ref, q, m, m, 0, -1, None, q, True, 8, 8)
 
 
 def _toy_entries():
