@@ -12,14 +12,20 @@ Phases, in order; any failure raises and exits non-zero:
 2. builds: compiles both CUDA sources (nvcc, sm_90a, one process each, in
    parallel) and the C host extension from the checkout's sources,
    printing the seconds each took;
-3. kernels vs plain versions on the card, byte-equal, both timed: K1's
-   integer and quality entries on 16384 runs of 48x48 (the aggregate
-   window the main path dispatches) and 2048 runs of 128x128, its
-   substitution entry on 4096 runs of 48x48 with an explicit
-   reference-quality tile, K2's fill on the same two shapes (every trace
+3. kernels vs plain versions on the card, byte-equal, both timed, each
+   beside its bound: K1's integer and quality entries on 16384 runs all
+   48x48 (the aggregate window the main path dispatches, length-sorted),
+   16384 runs of random lengths up to 48x48 and 2048 of up to 128x128,
+   its substitution entry on 4096 runs of 48x48 with an explicit
+   reference-quality tile, K2's fill on the two random shapes (every trace
    cell), and the locked tie-break fixtures (integer ones through K1,
    quality ones through K1's quality entry and through K2 plus the plain
-   traceback);
+   traceback).  A bound is the larger of the operations the inputs need
+   (12 f32 operations per DP cell, at 33.5 T op/s: the H100's 67 TFLOP/s
+   FP32 counts an FMA as two) and the bytes moved at 3.35 TB/s: the input
+   bytes the runs' lengths make the function read (K1: each run's m query
+   and n reference bytes, m phreds or m x n scores; K2: the score rows
+   1..m at every column) and every output byte, each once;
 4. the project_alignments slice at chromosome scale: a synthetic founder
    MSA with the 46,709,983 columns of GRCh38 chr21 (REF + 4 founders, 2%
    gap columns each) and 262,144 reads of 100 bp, projected as one process
@@ -38,9 +44,9 @@ Phases, in order; any failure raises and exits non-zero:
    give the host C DP's CIGARs.
 
 Launch counts are set to 0 just before each path of phases 4-6 and read
-just after it.  The second-to-last line is the kernels' JSON summary; the
-last line is {"ok": true, "device": {...}}.  Every timing is printed
-beside the card's name and power limit.
+just after it.  The kernels' JSON summary and the card's name and power
+limit come before the last line, which is {"ok": true, "device": {...}}.
+Every timing is printed beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -63,8 +69,13 @@ K1_REPLACES = "panvc3_tpu/ops/realign_pallas_fused.py:69"
 K2_REPLACES = "panvc3_tpu/ops/realign_pallas.py:37"
 CHR21_COLUMNS = 46_709_983
 N_READS = 262_144
-MALDE_SCALE = 256.0  # panvc3_tpu.align.MALDE_SCALE
+MALDE_SCALE = 256.0  # panvc3_tpu_torch.align.MALDE_SCALE
 OPS = {7: "=", 8: "X", 1: "I", 2: "D"}
+# the H100 SXM's published rates: FP32 outside the tensor cores (an FMA
+# counts as two, so unfused operations issue at half of it) and HBM3
+OPS_PER_S = 67e12 / 2
+BYTES_PER_S = 3.35e12
+DP_CELL_OPS = 12  # f32 adds, maxes and trace compares per DP cell
 
 
 def log(msg: str) -> None:
@@ -79,18 +90,65 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_runs(rng, B, Q, R):
+def random_runs(rng, B, Q, R, full=False):
+    """[ref, query, m, n] on the card: random lengths (the first three runs
+    at the edges), or every run at full length, as the length-sorted
+    window of 48x48 runs that the main path dispatches."""
     import numpy as np
     import torch
 
     letters = np.frombuffer(b"ACGT", np.uint8)
     ref = rng.choice(letters, (B, R)).astype(np.uint8)
     qry = rng.choice(letters, (B, Q)).astype(np.uint8)
-    n = rng.integers(0, R + 1, B).astype(np.int32)
-    m = rng.integers(0, Q + 1, B).astype(np.int32)
-    n[:3] = [0, R, R]
-    m[:3] = [Q, 0, Q]
+    if full:
+        n = np.full(B, R, np.int32)
+        m = np.full(B, Q, np.int32)
+    else:
+        n = rng.integers(0, R + 1, B).astype(np.int32)
+        m = rng.integers(0, Q + 1, B).astype(np.int32)
+        n[:3] = [0, R, R]
+        m[:3] = [Q, 0, Q]
     return [torch.from_numpy(a).cuda() for a in (ref, qry, m, n)]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(cells: int, moved: int) -> tuple[float, str]:
+    """The least time for ``cells`` DP cells and ``moved`` bytes, and
+    which of the two sets it."""
+    t_ops = cells * DP_CELL_OPS / OPS_PER_S * 1e3
+    t_bytes = moved / BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lengths(m, n, Q: int, R: int):
+    """The runs' m and n (int64), clamped to the tile as the kernels do."""
+    return m.clamp(0, Q).long(), n.clamp(0, R).long()
+
+
+def k1_need(m, n, Q: int, R: int, mode: str) -> tuple[int, int]:
+    """(DP cells, input bytes) that K1's ``mode`` entry needs for these
+    runs: m*n cells; each run's lengths, m query and n reference bytes, and
+    its m phreds (with the two 64-entry Malde rows) or m*n f32 scores."""
+    mc, nc = lengths(m, n, Q, R)
+    cells = int((mc * nc).sum())
+    moved = 8 * len(mc) + int(mc.sum() + nc.sum())
+    if mode == "qual":
+        moved += 4 * int(mc.sum()) + 2 * 64 * 4
+    elif mode == "sub":
+        moved += 4 * cells
+    return cells, moved
+
+
+def k2_need(m, n, Q: int, R: int) -> tuple[int, int]:
+    """(DP cells, input bytes) of K2's fill: every column of rows 1..m (its
+    whole trace is the output, columns past n included), so m*R cells and
+    scores, and the lengths."""
+    mc, _ = lengths(m, n, Q, R)
+    cells = int(mc.sum()) * R
+    return cells, 4 * cells + 8 * len(mc)
 
 
 def fixture_runs(quality: bool):
@@ -160,9 +218,12 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def compare(name, shape, kernel, plain, card, results) -> None:
+def compare(name, shape, kernel, plain, card, results, need) -> None:
     """Hold one kernel call against its plain version (every output
-    element equal), then time both; record the result under ``name``."""
+    element equal), time both, and set the kernel's time beside its bound:
+    ``need`` is (DP cells, input bytes read) for the timed runs, and every
+    output byte is written once.  Record the result under ``name`` and
+    ``shape``."""
     import torch
 
     got = kernel()
@@ -171,14 +232,63 @@ def compare(name, shape, kernel, plain, card, results) -> None:
     err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
     if err:
         raise AssertionError(f"{name} != plain version at {shape}: max |diff| {err}")
+    cells, read = need
+    moved = read + nbytes(*got)
+    b_ms, b_by = bound_ms(cells, moved)
     k_ms = time_ms(kernel, 20)
     p_ms = time_ms(plain, 2)
     res = results.setdefault(name, {"max_abs_err": 0, "timing": {}})
     res["max_abs_err"] = max(res["max_abs_err"], err)
-    res["timing"][shape] = (k_ms, p_ms)
+    res["timing"][shape] = (k_ms, p_ms, b_ms, b_by)
     log(
-        f"[kernel] {name} B,Q,R={shape}: kernel == plain (byte-equal); "
-        f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.3f} ms ({card})"
+        f"[kernel] {name} B,Q,R={shape[:3]} {shape[3]} lengths: kernel == plain "
+        f"(byte-equal); kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {cells} cells, {moved} bytes), {b_ms / k_ms:.1%} of "
+        f"bound ({card})"
+    )
+
+
+# (B, Q, R) at the edges of K1's schedule: each query bucket's lanes per
+# run and rows per lane, Q not a multiple of the rows per lane, R on both
+# sides of Q, several strips of rows (Q > 256), a tile too large for shared
+# memory (400x400: global scratch), B not a multiple of the runs per block
+K1_EDGE_SHAPES = [
+    (77, q + dq, q + dr)
+    for q in (1, 5, 6, 7, 31, 32, 33, 48, 49, 64, 65, 128, 129)
+    for dq, dr in ((0, 11), (11, 0))
+] + [(77, 5, 300), (21, 300, 5), (21, 300, 40), (9, 400, 400)]
+
+
+def check_k1_edges(rng, rows) -> None:
+    """K1's three entries byte-equal to the plain version at every edge
+    shape, m = 0 and n = 0 runs included."""
+    import numpy as np
+    import torch
+
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops.realign_pallas_fused import (
+        realign_fused,
+        realign_fused_reference,
+    )
+
+    for B, Q, R in K1_EDGE_SHAPES:
+        args = random_runs(rng, B, Q, R)
+        qq = torch.from_numpy(rng.integers(0, 64, (B, Q)).astype(np.int32)).cuda()
+        rq = torch.from_numpy(rng.integers(0, 42, (B, R)).astype(np.int32)).cuda()
+        sub = trb._substitution_scores(args[0], args[1], rq, qq.clamp(max=41), True)
+        for kw, go, ge in (
+            ({}, -6.0, -1.0),
+            ({"qual": (qq, *rows)}, -6 * MALDE_SCALE, -MALDE_SCALE),
+            ({"sub": sub}, -6 * MALDE_SCALE, -MALDE_SCALE),
+        ):
+            ops, cnt = realign_fused(*args, go, ge, R, Q, **kw)
+            want_ops, want_cnt = realign_fused_reference(*args, go, ge, R, Q, **kw)
+            if not (torch.equal(ops, want_ops) and torch.equal(cnt, want_cnt)):
+                mode = next(iter(kw), "int")
+                raise AssertionError(f"K1 {mode} entry != plain version at B,Q,R={B, Q, R}")
+    log(
+        f"[kernel] K1 edge shapes: {len(K1_EDGE_SHAPES)} shapes x 3 entries "
+        "(int, qual, sub) == plain version, byte-equal"
     )
 
 
@@ -197,29 +307,32 @@ def phase_kernels(card: str) -> dict:
     results: dict = {}
     rows = trb.malde_rows("cuda")
     kgo, kge = 0.0, -1.0 * MALDE_SCALE  # the CLI's gap costs, -q units
-    for B, Q, R in ((16384, 48, 48), (2048, 128, 128)):
-        args = random_runs(rng, B, Q, R)
+    for B, Q, R, full in ((16384, 48, 48, True), (16384, 48, 48, False), (2048, 128, 128, False)):
+        shape = (B, Q, R, "full" if full else "random")
+        args = random_runs(rng, B, Q, R, full)
+        ref, qry, m, n = args
         compare(
-            "realign_fused_int", (B, Q, R),
+            "realign_fused_int", shape,
             lambda: realign_fused(*args, 0.0, -1.0, R, Q),
             lambda: realign_fused_reference(*args, 0.0, -1.0, R, Q),
-            card, results,
+            card, results, k1_need(m, n, Q, R, "int"),
         )
         qq = torch.from_numpy(rng.integers(0, 42, (B, Q)).astype(np.int32)).cuda()
         qual = (qq, *rows)
         compare(
-            "realign_fused_qual", (B, Q, R),
+            "realign_fused_qual", shape,
             lambda: realign_fused(*args, kgo, kge, R, Q, qual=qual),
             lambda: realign_fused_reference(*args, kgo, kge, R, Q, qual=qual),
-            card, results,
+            card, results, k1_need(m, n, Q, R, "qual"),
         )
-        ref, qry, m, n = args
+        if full:
+            continue
         sub = trb._qual_scores(ref, qry, *qual)
         compare(
-            "realign_fill_sub", (B, Q, R),
+            "realign_fill_sub", shape,
             lambda: (fill_batch(sub, m, n, kgo, kge, R, Q),),
             lambda: (trb._fill_batch(sub, m, n, kgo, kge, R, Q),),
-            card, results,
+            card, results, k2_need(m, n, Q, R),
         )
         del sub
     B, Q, R = 4096, 48, 48
@@ -228,11 +341,12 @@ def phase_kernels(card: str) -> dict:
     rq = torch.from_numpy(rng.integers(0, 42, (B, R)).astype(np.int32)).cuda()
     sub = trb._substitution_scores(args[0], args[1], rq, qq, True)
     compare(
-        "realign_fused_sub", (B, Q, R),
+        "realign_fused_sub", (B, Q, R, "random"),
         lambda: realign_fused(*args, kgo, kge, R, Q, sub=sub),
         lambda: realign_fused_reference(*args, kgo, kge, R, Q, sub=sub),
-        card, results,
+        card, results, k1_need(args[2], args[3], Q, R, "sub"),
     )
+    check_k1_edges(rng, rows)
 
     n_fix = 0
     for go, ge, args, _, R, Q, cigars in fixture_runs(quality=False):
@@ -421,7 +535,7 @@ def phase_batch(card: str, seed: int) -> int:
     launches = _kernels.LAUNCHES["realign_fused_sub"]
     os.environ["PANVC3_HOST_DP"] = "1"
     os.environ["PANVC3_HOST_DP_CELLS"] = str(10**18)
-    want = trb.realign_batch(refs, queries, 0, -1, rqs, qqs)
+    want = trb.realign_batch(refs, queries, 0, -1, rqs, qqs, device="cpu")
     for key in ("PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS"):
         os.environ.pop(key, None)
     if launches <= 0:
@@ -495,14 +609,16 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     launches["realign_fused_sub"] = phase_batch(card, args.seed)
 
+    # each entry at the main path's shape: K1's window of 48x48 runs (the
+    # substitution entry's realign_batch call), K2's split-route window
     entries = []
     for entry, source, replaces, shape in (
-        ("realign_fused_int", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48)),
-        ("realign_fused_qual", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48)),
-        ("realign_fused_sub", FUSED_SOURCE, K1_REPLACES, (4096, 48, 48)),
-        ("realign_fill_sub", FILL_SOURCE, K2_REPLACES, (16384, 48, 48)),
+        ("realign_fused_int", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48, "full")),
+        ("realign_fused_qual", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48, "full")),
+        ("realign_fused_sub", FUSED_SOURCE, K1_REPLACES, (4096, 48, 48, "random")),
+        ("realign_fill_sub", FILL_SOURCE, K2_REPLACES, (16384, 48, 48, "random")),
     ):
-        k_ms, p_ms = kern[entry]["timing"][shape]
+        k_ms, p_ms, b_ms, b_by = kern[entry]["timing"][shape]
         entries.append({
             "name": entry,
             "route": "cuda",
@@ -512,11 +628,23 @@ def main() -> int:
             "max_abs_err": kern[entry]["max_abs_err"],
             "ms": k_ms,
             "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            # no single PyTorch call computes an affine-gap DP with traceback
+            "library_ms": None,
         })
+        log(
+            f"[kernel] {entry}: {launches[entry]} launches per call on its path; "
+            f"{k_ms:.4f} ms at {shape}, bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / k_ms:.1%} of bound ({card})"
+        )
     log(json.dumps({"kernels": entries}))
     log(card_line())
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
+    ref_pkg = [m for m in sys.modules if m == "panvc3_tpu" or m.startswith("panvc3_tpu.")]
+    if ref_pkg:
+        raise AssertionError(f"the port loaded modules of panvc3_tpu: {ref_pkg}")
     # every phase ran on cuda:0, the one card this run uses
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0

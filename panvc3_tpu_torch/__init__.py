@@ -1,18 +1,23 @@
 """panvc3_tpu_torch — the PyTorch/CUDA port of panvc3_tpu for an NVIDIA H100.
 
 The package sits beside ``panvc3_tpu``, which stays the reference it is
-tested against.  It imports ``torch`` and never ``jax``: the host code
-that has no JAX in it (SAM/FASTA I/O, the MSA index, header processing,
-the lane controller, the host event geometry) is imported from
-``panvc3_tpu``; everything that ran on the TPU is ported here, mirroring
-the old layout and names:
+tested against.  It imports ``torch``, and nothing of ``jax`` or of
+``panvc3_tpu``: the host modules it needs are copies of the originals,
+trimmed to what the port calls and kept at the same module paths and
+names (``alphabet``, ``cigar``, ``bitvec``, ``msa_index``, ``seqbuf``,
+``utils``, ``io.bgzf``, ``io.fasta``, ``io.sam``, ``align``,
+``indel_runs``, ``rewrite``, ``projector``, ``ops.event_geometry``).  The
+C sources under ``native/`` stay shared: they hold no JAX, import nothing
+of ``panvc3_tpu``, and the port compiles them into its own build
+directory.  Everything that ran on the TPU is ported here, mirroring the
+old layout and names:
 
 - ``panvc3_tpu_torch.native``        builds and loads the C host extension
-- ``panvc3_tpu_torch.alphabet``      dna5 normalisation on tensors
 - ``panvc3_tpu_torch.ops``           the realignment DP (hand-written CUDA
-  kernels and their plain PyTorch versions), the wire functions around it
-  and the batch projector's device state
-- ``panvc3_tpu_torch.pipeline``      the project_alignments fast lane
+  kernels and their plain PyTorch versions), the wire functions around it,
+  the host event geometry and the batch projector's device state
+- ``panvc3_tpu_torch.pipeline``      project_alignments: the fast lane
+  (device engine) and the host engine
 - ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch project_alignments``
 
 Device choice is explicit: functions take a ``torch.device``; the CLI's

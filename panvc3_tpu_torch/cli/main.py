@@ -12,9 +12,42 @@ from __future__ import annotations
 import argparse
 import sys
 
-from panvc3_tpu.cli.main import _debug_flags, _in_stream, _out_stream, _parse_shard
-
 from .. import __version__
+
+
+def _debug_flags(args) -> None:
+    if getattr(args, "print_invocation", False):
+        print("Invocation: " + " ".join(sys.argv), file=sys.stderr)
+    if getattr(args, "print_pid", False):
+        import os
+
+        print(f"PID: {os.getpid()}", file=sys.stderr)
+
+
+def _in_stream(path: str | None):
+    if path:
+        return path
+    return sys.stdin.buffer
+
+
+def _out_stream(path: str | None):
+    if path:
+        return path
+    return sys.stdout.buffer
+
+
+def _parse_shard(spec: str | None) -> tuple[int, int] | None:
+    """'K/N' -> (K, N) with 0 <= K < N."""
+    if not spec:
+        return None
+    try:
+        k_s, n_s = spec.split("/")
+        k, n = int(k_s), int(n_s)
+    except ValueError:
+        raise ValueError(f"invalid shard spec {spec!r}; expected K/N")
+    if not 0 <= k < n:
+        raise ValueError(f"invalid shard spec {spec!r}; need 0 <= K < N")
+    return (k, n)
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -44,15 +44,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "realign_fused_int": (
         "realign_fused.cu",
-        [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     ),
     "realign_fused_qual": (
         "realign_fused.cu",
-        [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     ),
     "realign_fused_sub": (
         "realign_fused.cu",
-        [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     ),
     "realign_fill_sub": (
         "realign_fill.cu",
@@ -62,6 +62,9 @@ _SIGNATURES = {
 
 #: launches of each C entry since the last ``reset_launches``
 LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
+
+# C helpers that launch nothing (not counted): name -> (source, argtypes)
+_HELPERS = {"realign_fused_scratch": ("realign_fused.cu", [_I, _I, _I])}
 
 
 def nvcc_path() -> str:
@@ -105,7 +108,7 @@ def _library(source: str) -> ctypes.CDLL:
 
 def kernel(name: str):
     """The bound C entry point ``name`` (its source built on first use)."""
-    source, argtypes = _SIGNATURES[name]
+    source, argtypes = _SIGNATURES[name] if name in _SIGNATURES else _HELPERS[name]
     fn = getattr(_library(source), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

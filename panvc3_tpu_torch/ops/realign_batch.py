@@ -18,8 +18,8 @@ Counterpart of ``panvc3_tpu.ops.realign_batch``:
   lists of byte strings (host C DP for small batches, else ``_dp``),
   with pinned or explicit reference qualities;
 - the numpy host helpers and tables are copies of the originals (which
-  live in a module that imports JAX); the Malde tables are imported from
-  ``panvc3_tpu.align``.
+  live in a module that imports JAX); the Malde tables come from the
+  port's ``align``.
 
 Scores are integers exact in f32 (the quality scheme in 1/``MALDE_SCALE``
 units, gap costs scaled to match, while R+Q <= 5461), so every
@@ -34,11 +34,10 @@ import os
 import numpy as np
 import torch
 
-from panvc3_tpu.align import MALDE_SCALE, malde_tables
-from panvc3_tpu.alphabet import PHRED42_MAX
-from panvc3_tpu.cigar import CODE_TO_OP, Cigar
-
-from ..alphabet import dna5_normalise_device
+from .. import resolve_device
+from ..align import MALDE_SCALE, malde_tables
+from ..alphabet import PHRED42_MAX, dna5_normalise_device
+from ..cigar import CODE_TO_OP, Cigar
 from .realign_pallas import fill_batch
 from .realign_pallas_fused import realign_fused
 
@@ -649,10 +648,11 @@ def realign_batch(
     pad_ref: int | None = None,
     pad_query: int | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> list[Cigar]:
-    """Align each (ref, query) pair on ``device``; returns collapsed
-    per-run CIGARs."""
+    """Align each (ref, query) pair on ``device`` (``'cuda'``, the default,
+    raises without a card; ``'cpu'`` runs the plain versions); returns
+    collapsed per-run CIGARs."""
     return realign_batch_finish(
         realign_batch_start(
             refs, queries, gap_opening, gap_extension, ref_quals,
@@ -671,14 +671,17 @@ def realign_batch_start(
     pad_ref: int | None = None,
     pad_query: int | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ):
     """Dispatch one batch; finish with :func:`realign_batch_finish`.
     ``ref_quals`` (per-run phred arrays, or ``PINNED_REF_QUALS``) turns on
     quality scoring with ``query_quals``.  Small batches run the host C DP
     (``PANVC3_HOST_DP``, ``PANVC3_HOST_DP_CELLS``); the others go to
     ``device``: K1's quality entry when every reference phred is pinned,
-    its substitution entry for explicit ones."""
+    its substitution entry for explicit ones.  ``device`` as for
+    :func:`realign_batch`; it is resolved first, so a missing card raises
+    whichever lane the batch would take."""
+    dev = resolve_device(device)
     b = len(refs)
     if b == 0:
         return None
@@ -725,7 +728,6 @@ def realign_batch_start(
             np.frombuffer(ops_b, np.int8).reshape(b, R + Q),
             np.frombuffer(cnt_b, np.int32),
         )
-    dev = torch.device(device)
     ref_t, q_t, rl_t, ql_t = (torch.from_numpy(a).to(dev) for a in (ref_arr, q_arr, rl, ql))
     rq_t = qq_t = None
     if use_quality:

@@ -65,22 +65,22 @@ def realign_fused(ref, query, m, n, go, ge, R: int, Q: int, sub=None, qual=None)
     count = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return ops, count
-    n_words = (R + 1 + 7) // 8
-    best = torch.empty((R + 1, B), dtype=torch.float32, device=dev)
-    vert = torch.empty((R + 1, B), dtype=torch.float32, device=dev)
-    trace = torch.empty(((Q + 1) * n_words, B), dtype=torch.int32, device=dev)
     if sub is not None:
-        name, scores = "realign_fused_sub", (sub.data_ptr(),)
+        name, mode, scores = "realign_fused_sub", 2, (sub.data_ptr(),)
     elif qual is not None:
-        name, scores = "realign_fused_qual", tuple(t.data_ptr() for t in qual)
+        name, mode, scores = "realign_fused_qual", 1, tuple(t.data_ptr() for t in qual)
     else:
-        name, scores = "realign_fused_int", ()
+        name, mode, scores = "realign_fused_int", 0, ()
+    # the runs' trace tiles live in shared memory where a block's fit, else
+    # in this global scratch ([words, B])
+    words = _kernels.kernel("realign_fused_scratch")(R, Q, mode)
+    scratch = torch.empty((words, B), dtype=torch.int32, device=dev) if words else None
     with torch.cuda.device(dev):
         _kernels.launch(
             name,
             ref.data_ptr(), query.data_ptr(), m.data_ptr(), n.data_ptr(),
             *scores, float(go), float(ge), B, R, Q,
-            best.data_ptr(), vert.data_ptr(), trace.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             ops.data_ptr(), count.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

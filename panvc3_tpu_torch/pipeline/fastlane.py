@@ -39,18 +39,10 @@ import time as _time
 import numpy as np
 import torch
 
-from panvc3_tpu.align import MALDE_SCALE, malde_tables
-from panvc3_tpu.ops.event_geometry import EventGeometry, project_unit
-from panvc3_tpu.pipeline.fastlane import (
-    FLAG_SKIP,
-    LaneController,
-    _next_row_bucket,
-    _next_rq_bucket,
-)
-from panvc3_tpu.utils import StatusReporter, format_duration, log_time
-
+from ..align import MALDE_SCALE, malde_tables
 from ..native import get_native
 from ..ops import _kernels
+from ..ops.event_geometry import EventGeometry, project_unit
 from ..ops.realign_batch import (
     QUAL_MAX_STEPS,
     _realign_wire,
@@ -70,6 +62,9 @@ from ..ops.realign_batch import (
     unpack_realign_refgather_wire,
     unpack_realign_wire,
 )
+from ..utils import StatusReporter, format_duration, log_time
+
+FLAG_SKIP = 0x4 | 0x200 | 0x400  # unmapped | QC fail | duplicate
 
 # sparse deletion slots of the rewrite geometry (panvc3_tpu.ops.rewrite_batch)
 D_SPARSE_SLOTS = 8
@@ -83,22 +78,305 @@ _PROF = os.environ.get("PANVC3_FASTLANE_PROF") == "1"
 # which wire/layout variants engaged.
 AGG_DIAG = {"dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0}
 
-# the adaptive host/device realign-lane choice; process-global like the
-# original's, since its EMAs describe the hardware (begin_run resets the
-# per-run span state)
+
+class LaneController:
+    """End-to-end adaptive host/device realign-lane choice (copy of
+    ``panvc3_tpu.pipeline.fastlane.LaneController``; its priors and
+    constants were tuned on the TPU and are to be re-tuned on the card,
+    ROADMAP Queue 1 item 2).
+
+    A pure cost inequality (cells x host_ns_cell <= device_batch_ns)
+    compares raw per-batch costs, but the two lanes load different parts
+    of the pipeline: the host C DP runs inside the worker pool while the
+    device lane adds writer-thread dispatch and fetch to the ordered
+    drain's critical path.  This controller measures per-lane throughput
+    over epochs — contiguous same-lane spans of emitted batches, clocked
+    from the span's first emit to its last — with periodic probe windows
+    on the other lane and a 10% switch hysteresis.  Per-batch inter-emit
+    gaps would be biased: a deferred device batch at the drain's head dams
+    completed host payloads, which then emit back to back.  The raw cost
+    EMAs survive as overrides for extreme batches only.
+
+    Process-global: the EMAs describe the hardware, so every run in the
+    process shares and refines them; ``begin_run`` resets only the per-run
+    span state.
+    """
+
+    PROBE_PERIOD = 48    # decisions between probe windows
+    PROBE_LEN = 6        # consecutive probe decisions (one measurable span)
+    # an unmeasured (or once-measured) lane is probed at this shorter
+    # period, so a short adaptive run does not finish on the slow initial
+    # mode
+    BOOTSTRAP_PERIOD = 24
+    BOOTSTRAP_SPANS = 2  # spans a lane needs before normal cadence applies
+    HYSTERESIS = 0.9     # switch only on a >=10% measured win
+    # cost ratios that force a lane; wide, because dev_ns_batch is
+    # amortized over an aggregate window and reads several times the true
+    # per-batch cost
+    OVERRIDE_HOST = 64.0
+    OVERRIDE_DEV = 64.0
+    BACKOFF_MAX = 16     # probe-period multiplier when the probe keeps losing
+    # a probe that loses by more than this ratio grows the back-off, so a
+    # clearly decided race is probed rarely and a near tie closely
+    BACKOFF_LOSS_RATIO = 1.3
+    # close and restart a long same-lane span every N batches, so the
+    # active lane's EMA refreshes and its degradation shows without a probe
+    SPAN_CLOSE_BATCHES = 12
+    # shorter spans measure lane-transition turbulence, not throughput:
+    # discard them (probe windows count PROBE_LEN-1 batches and stay)
+    MIN_SPAN_BATCHES = 5
+    # a drain dam burst can emit a whole span in near-zero wall time: clamp
+    # a span far faster than every lane's EMA to this fraction of the best
+    BURST_FLOOR_FRACTION = 0.25
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        # cost EMAs; priors reproduce the historical 4e6-cell threshold
+        self.host_ns_cell = 4.0
+        self.dev_ns_batch = 16e6
+        self.ns_read = {"host": None, "dev": None}
+        self.span_count = {"host": 0, "dev": 0}
+        self.span_discards = {"host": 0, "dev": 0}
+        self.regime_cells_per_read = None
+        self._regime_outliers = 0
+        self._regime_cooldown = 0
+        # burst floor carried across a regime reset (dam bursts are a
+        # steady-state artifact, so the first post-reset span needs the
+        # protection too); imperfect across regimes but directionally
+        # conservative
+        self._carried_floor = None
+        self.mode = "host"
+        self.tick = 0
+        self.backoff = 1
+        # current same-lane span: lane, first-emit clock, reads since
+        self.span_lane = None
+        self.span_start_ns = 0
+        self.span_last_ns = 0
+        self.span_reads = 0
+        self.span_batches = 0
+
+    def begin_run(self):
+        with self.lock:
+            # CLOSE the previous run's open span (its clock ends at its
+            # last emit, so cross-run idle time is not counted) instead
+            # of dropping it: probe windows fire at the END of each
+            # period, which can align with the end of a run, and dropping
+            # the open span would discard every bootstrap probe
+            # measurement, locking the controller on the initial mode
+            self._close_span()
+            self.span_lane = None
+            self.span_reads = 0
+            self.span_batches = 0
+            # a tail fragment at stream end is structural, not evidence
+            # of chronic fragmentation — don't let run boundaries arm the
+            # fragment escape hatch across runs
+            self.span_discards = {"host": 0, "dev": 0}
+
+    def decide(self, real_cells: int) -> bool:
+        """True -> host C DP; False -> device lane."""
+        with self.lock:
+            host_ns = real_cells * self.host_ns_cell
+            if host_ns > self.OVERRIDE_DEV * self.dev_ns_batch:
+                return False
+            if self.OVERRIDE_HOST * host_ns < self.dev_ns_batch:
+                return True
+            self.tick += 1
+            # probe at the END of each period (a start-of-period window
+            # would penalize short streams, whose first batches all land
+            # in it), with exponential back-off while probes keep losing
+            period = self.PROBE_PERIOD * self.backoff
+            other = "dev" if self.mode == "host" else "host"
+            if self.span_count[other] < self.BOOTSTRAP_SPANS:
+                # bootstrap cadence; the first PROBE_LEN batches stay on
+                # the current mode so the pipeline settles before a span
+                # is worth measuring
+                if self.tick <= self.PROBE_LEN:
+                    return self.mode == "host"
+                period = self.BOOTSTRAP_PERIOD
+            if self.tick % period >= period - self.PROBE_LEN:
+                return self.mode != "host"  # probe the other lane
+            return self.mode == "host"
+
+    def observe_host_dp(self, ns: float, cells: int):
+        with self.lock:
+            self.host_ns_cell = 0.7 * self.host_ns_cell + 0.3 * ns / cells
+
+    def observe_dev_batch(self, total_ns: float):
+        with self.lock:
+            self.dev_ns_batch = 0.7 * self.dev_ns_batch + 0.3 * total_ns
+
+    def _close_span(self):
+        # record the finished span's ns/read (clocked from its FIRST emit,
+        # so the lane-transition turbulence of batch 1 is excluded)
+        elapsed = self.span_last_ns - self.span_start_ns
+        if self.span_lane is not None and self.span_reads > 0 and elapsed > 0:
+            if self.span_batches < self.MIN_SPAN_BATCHES:
+                # fragment — but a workload whose spans are ALWAYS cut
+                # short (e.g. trivial override-routed batches interleaving
+                # every few heavy ones) must not freeze the EMAs entirely:
+                # after 3 consecutive discards on a lane, accept >=2-batch
+                # fragments until a full span records again
+                if not (
+                    self.span_discards[self.span_lane] >= 3
+                    and self.span_batches >= 2
+                ):
+                    self.span_discards[self.span_lane] += 1
+                    return
+            was_probe = self.span_lane != self.mode
+            ns_read = elapsed / self.span_reads
+            cur = self.ns_read[self.span_lane]
+            known = [v for v in self.ns_read.values() if v is not None]
+            if known or self._carried_floor is not None:
+                floor = (
+                    self.BURST_FLOOR_FRACTION * min(known)
+                    if known
+                    else self._carried_floor
+                )
+                if ns_read < floor:
+                    # dam-burst span: cap its influence.  This applies to a
+                    # lane's FIRST span too (adopt the floor, don't
+                    # discard): a genuinely much faster lane measures below
+                    # the floor legitimately, and discarding would lock
+                    # bootstrap on the slow lane.  In the bogus-burst case
+                    # the refresh spans pull the adopted value to reality.
+                    ns_read = floor
+            self.span_discards[self.span_lane] = 0
+            self.ns_read[self.span_lane] = (
+                ns_read if cur is None else 0.7 * cur + 0.3 * ns_read
+            )
+            self.span_count[self.span_lane] += 1
+            h, d = self.ns_read["host"], self.ns_read["dev"]
+            if h is not None and d is not None:
+                if self.mode == "host" and d < self.HYSTERESIS * h:
+                    self.mode = "dev"
+                elif self.mode == "dev" and h < self.HYSTERESIS * d:
+                    self.mode = "host"
+                if was_probe:
+                    mine = d if self.span_lane == "dev" else h
+                    other = h if self.span_lane == "dev" else d
+                    if self.span_lane == self.mode:
+                        self.backoff = 1  # probe won: watch closely again
+                    elif (
+                        mine > self.BACKOFF_LOSS_RATIO * other
+                        and self.span_count[self.span_lane]
+                        >= self.BOOTSTRAP_SPANS
+                    ):
+                        # never back off on a lane's first spans: the
+                        # very first device window may carry a fresh
+                        # kernel compile, and parking the probe for
+                        # BACKOFF_MAX periods on that evidence would
+                        # freeze a wrong verdict
+                        self.backoff = min(self.backoff * 2, self.BACKOFF_MAX)
+                    else:
+                        self.backoff = 1
+
+    def observe_emit(
+        self,
+        dev_lane: bool,
+        reads: int,
+        now_ns: int,
+        attribute: bool = True,
+        cells: int = 0,
+    ):
+        """Writer-thread signal: one batch emitted.  ``attribute=False``
+        (no realign runs — lane-neutral) joins the open span, if any,
+        without being able to start or switch one.  ``cells`` (the
+        batch's realignment DP cells) feeds workload-regime detection."""
+        with self.lock:
+            if not attribute:
+                if self.span_lane is not None:
+                    self.span_reads += reads
+                    self.span_last_ns = now_ns
+                return
+            # ns/read EMAs are only comparable within one workload
+            # regime: a mixed-workload span (realignment a tiny slice of
+            # each batch) says nothing about a lane's rate on a
+            # realign-heavy stream.  Track cells/read; when it shifts >4x,
+            # reset to a fresh bootstrap.
+            if reads > 0 and cells > 0:
+                cpr = cells / reads
+                reg = self.regime_cells_per_read
+                if self._regime_cooldown > 0:
+                    self._regime_cooldown -= 1
+                if reg is None:
+                    self.regime_cells_per_read = cpr
+                elif cpr > 4.0 * reg or cpr < 0.25 * reg:
+                    # two consecutive out-of-band batches = a real regime
+                    # shift; one is just an outlier batch.  At most one
+                    # reset per cooldown window: an OSCILLATING bimodal
+                    # stream would otherwise re-bootstrap forever and
+                    # never record a span — during cooldown the regime
+                    # EMA blends fast (0.3) instead, so a persistent new
+                    # regime re-centres without a second reset and an
+                    # oscillation lands the centre mid-band where the 4x
+                    # band covers both poles (pre-reset blended
+                    # behaviour).
+                    self._regime_outliers += 1
+                    if self._regime_outliers >= 2:
+                        self._regime_outliers = 0
+                        if self._regime_cooldown == 0:
+                            # carry a floor across the reset so the first
+                            # post-reset span keeps dam-burst protection
+                            known = [
+                                v for v in self.ns_read.values()
+                                if v is not None
+                            ]
+                            if known:
+                                self._carried_floor = (
+                                    self.BURST_FLOOR_FRACTION * min(known)
+                                )
+                            self.regime_cells_per_read = cpr
+                            self.ns_read = {"host": None, "dev": None}
+                            self.span_count = {"host": 0, "dev": 0}
+                            self.span_discards = {"host": 0, "dev": 0}
+                            self.backoff = 1
+                            self.span_lane = None  # span mixes regimes
+                            self._regime_cooldown = 96
+                        else:
+                            self.regime_cells_per_read = (
+                                0.7 * reg + 0.3 * cpr
+                            )
+                else:
+                    self._regime_outliers = 0
+                    self.regime_cells_per_read = 0.9 * reg + 0.1 * cpr
+            lane = "dev" if dev_lane else "host"
+            if lane != self.span_lane:
+                self._close_span()
+                self.span_lane = lane
+                self.span_start_ns = now_ns
+                self.span_last_ns = now_ns
+                self.span_reads = 0  # first batch only starts the clock
+                self.span_batches = 0
+            else:
+                self.span_reads += reads
+                self.span_last_ns = now_ns
+                self.span_batches += 1
+                if self.span_batches >= self.SPAN_CLOSE_BATCHES:
+                    # periodic refresh: record the chunk and restart the
+                    # span on the same lane (this emit is the new clock
+                    # start) so active-lane degradation surfaces and the
+                    # cross-lane switch check runs without a probe
+                    self._close_span()
+                    self.span_start_ns = now_ns
+                    self.span_last_ns = now_ns
+                    self.span_reads = 0
+                    self.span_batches = 0
+
+
+# the adaptive host/device realign-lane choice; process-global, since its
+# EMAs describe the hardware (begin_run resets the per-run span state)
 _ADAPT = LaneController()
 
 
-def check_covered(cfg, bam: bool) -> None:
+def check_covered(cfg) -> None:
     """Raise NotImplementedError for a configuration the port's fast lane
-    does not run (``bam``: BAM input or output).  ``panvc3_tpu``'s
-    ``fastlane_eligible`` consults that package's own native loader, so
-    the port checks here instead; nothing falls through to another path."""
+    does not run; nothing falls through to another path (BAM input raises
+    in ``SamReader``)."""
     if not cfg.fastlane:
         raise NotImplementedError(
             "the object (non-fast-lane) device path is not ported; see ROADMAP"
         )
-    if bam:
+    if cfg.output_bam:
         raise NotImplementedError(
             "BAM input/output on the port's fast lane is ROADMAP Queue 1 item 8"
         )
@@ -121,31 +399,6 @@ def check_covered(cfg, bam: bool) -> None:
             "PANVC3_EVENT_GEOMETRY=0 (the device gap kernel) is ROADMAP "
             "Queue 1 item 4"
         )
-
-
-def _event_geometry(src_entries, dst_entries, ref_id_mapping, nat):
-    """The host event geometry, on this package's native build: the
-    per-reference buffer tuples of ``EventGeometry``'s native path
-    (``PANVC3_EVENT_GEOMETRY_NATIVE=0`` keeps the numpy path)."""
-    geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
-    if geo._native is None and os.environ.get("PANVC3_EVENT_GEOMETRY_NATIVE") != "0":
-        group = []
-        for pe, s in zip(geo.events, geo.src_gv):
-            if pe is None:
-                group.append(None)
-                continue
-            group.append((
-                np.ascontiguousarray(pe.gap_start),
-                np.ascontiguousarray(pe.gap_end),
-                np.ascontiguousarray(pe.del_b),
-                np.ascontiguousarray(pe.del_len),
-                np.ascontiguousarray(pe.gap_clen),
-                np.ascontiguousarray(pe.del_clen),
-                int(s.n_zeros),
-            ))
-        geo._native = nat
-        geo._native_group = group
-    return geo
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -193,9 +446,9 @@ def run_fast(
     realigned_ranges,
 ):
     """Drive the full projection pipeline over raw line batches."""
-    from panvc3_tpu.pipeline.project_alignments import PRESERVED_TAGS
+    from .project_alignments import PRESERVED_TAGS
 
-    check_covered(cfg, reader.is_bam or writer.bam)
+    check_covered(cfg)
     bp = batch_engine
     if max(max(bp.src_dev_ids, default=0), max(bp.dst_dev_ids, default=0)) >= 65536:
         raise NotImplementedError(
@@ -205,7 +458,7 @@ def run_fast(
     nat = get_native()
     device = bp.device
 
-    event_geo = _event_geometry(src_entries, dst_entries, ref_id_mapping, nat)
+    event_geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
 
     refmap = {name.encode(): i for i, name in enumerate(input_header.ref_names)}
     rim = np.asarray(ref_id_mapping, dtype=np.int32)
@@ -1186,3 +1439,31 @@ def run_fast(
             "kernel_launches": dict(_kernels.LAUNCHES),
             "device": str(device),
         }))
+
+
+def _next_bucket(n: int, floor: int) -> int:
+    """Smallest {p, 1.5p} ladder value >= max(n, floor) (p a power of
+    two).  A pure pow2 ladder wastes up to 2x padding just above a
+    boundary; the half-octave step bounds the waste at 33% while keeping
+    the compiled shape set small (two per octave)."""
+    p = floor
+    while p < n:
+        if p + (p >> 1) >= n:
+            return p + (p >> 1)
+        p <<= 1
+    return p
+
+
+def _next_row_bucket(n: int) -> int:
+    """Row (run-count) bucket for the aggregate realign dispatch."""
+    return _next_bucket(n, 1)
+
+
+def _next_rq_bucket(n: int) -> int:
+    """R/Q pad bucket for the aggregate dispatch: the ladder from 8 up.
+    Every value is divisible by 4 (p pow2 >= 8, and 1.5p with p >= 8), so
+    the wire constraints (4-bit query packing needs even Q, 2-bit op
+    packing needs steps % 4 == 0) hold for any R/Q combination.  A
+    pow2-only ladder wasted up to 2x DP compute AND wire per axis (the
+    bench's 48x48 runs padded to 64x64 = 1.78x padded cells)."""
+    return _next_bucket(n, 8)

@@ -18,8 +18,8 @@ import pathlib
 
 import numpy as np
 
-from panvc3_tpu.bitvec import GapBitVector
-from panvc3_tpu.msa_index import ChrEntry, MsaIndex, SequenceEntry
+from .bitvec import GapBitVector
+from .msa_index import ChrEntry, MsaIndex, SequenceEntry
 
 SEQ_IDS = ("REF", "1", "2", "3", "4")
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)

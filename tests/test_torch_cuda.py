@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K1_EDGE_SHAPES
+
 pytestmark = pytest.mark.cuda
 
 
@@ -23,6 +25,27 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc for the hand-written kernel")
     return torch.device("cuda")
+
+
+# K1's shapes: a few of the main path's and, at go -6 ge -1, the edges of
+# its schedule (chip_smoke.K1_EDGE_SHAPES: each query bucket's lanes per
+# run and rows per lane, R on both sides of Q, several strips, the
+# global-scratch branch, B not a multiple of the runs per block)
+_K1_SHAPES = [
+    (300, 16, 16, -6, -1),
+    (4096, 48, 48, 0, -1),
+    (512, 128, 128, -6, -1),
+    (33, 7, 29, -3, -2),
+    (1, 1, 1, 0, -1),
+] + [(B, Q, R, -6, -1) for B, Q, R in K1_EDGE_SHAPES]
+
+
+def _check_scratch(mode: int, R: int, Q: int) -> None:
+    """Only the 400x400 edge shape's tiles overflow shared memory."""
+    from panvc3_tpu_torch.ops import _kernels
+
+    words = _kernels.kernel("realign_fused_scratch")(R, Q, mode)
+    assert (words > 0) == (Q == R == 400)
 
 
 def _runs(rng, B, Q, R):
@@ -37,21 +60,13 @@ def _runs(rng, B, Q, R):
     return [torch.from_numpy(a) for a in (ref, qry, m, n)]
 
 
-@pytest.mark.parametrize(
-    "B,Q,R,go,ge",
-    [
-        (300, 16, 16, -6, -1),
-        (4096, 48, 48, 0, -1),
-        (512, 128, 128, -6, -1),
-        (33, 7, 29, -3, -2),
-        (1, 1, 1, 0, -1),
-    ],
-)
+@pytest.mark.parametrize("B,Q,R,go,ge", _K1_SHAPES)
 def test_kernel_matches_plain_version(cuda, B, Q, R, go, ge):
     from panvc3_tpu_torch.ops import _kernels
     from panvc3_tpu_torch.ops import realign_pallas_fused as rpf
 
     args = [t.to(cuda) for t in _runs(np.random.default_rng(B + Q + R), B, Q, R)]
+    _check_scratch(0, R, Q)
     before = _kernels.LAUNCHES["realign_fused_int"]
     ops, cnt = rpf.realign_fused(*args, go, ge, R, Q)
     assert _kernels.LAUNCHES["realign_fused_int"] == before + 1
@@ -64,16 +79,7 @@ def test_kernel_matches_plain_version(cuda, B, Q, R, go, ge):
 _MALDE = 256.0  # panvc3_tpu.align.MALDE_SCALE
 
 
-@pytest.mark.parametrize(
-    "B,Q,R,go,ge",
-    [
-        (300, 16, 16, -6, -1),
-        (4096, 48, 48, 0, -1),
-        (512, 128, 128, -6, -1),
-        (33, 7, 29, -3, -2),
-        (1, 1, 1, 0, -1),
-    ],
-)
+@pytest.mark.parametrize("B,Q,R,go,ge", _K1_SHAPES)
 @pytest.mark.parametrize("mode", ["qual", "sub"])
 def test_quality_entries_match_plain_version(cuda, mode, B, Q, R, go, ge):
     from panvc3_tpu_torch.ops import _kernels
@@ -89,6 +95,7 @@ def test_quality_entries_match_plain_version(cuda, mode, B, Q, R, go, ge):
     else:
         rq = torch.from_numpy(rng.integers(0, 42, (B, R)).astype(np.int32)).to(cuda)
         kw = {"sub": trb._substitution_scores(args[0], args[1], rq, qq.clamp(max=41), True)}
+    _check_scratch(["int", "qual", "sub"].index(mode), R, Q)
     name = f"realign_fused_{mode}"
     before = _kernels.LAUNCHES[name]
     ops, cnt = rpf.realign_fused(*args, go * _MALDE, ge * _MALDE, R, Q, **kw)
@@ -187,11 +194,13 @@ def test_slice_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality, env, en
     copies, events and the fetch pool on the card path, with integer and
     quality scoring, on K1 and on the split route, also under scheduling
     jitter at every cross-thread handoff."""
-    from panvc3_tpu.pipeline.project_alignments import ProjectConfig
     from panvc3_tpu_torch import synth
     from panvc3_tpu_torch.ops import _kernels
     from panvc3_tpu_torch.pipeline import fastlane
-    from panvc3_tpu_torch.pipeline.project_alignments import run_project_alignments
+    from panvc3_tpu_torch.pipeline.project_alignments import (
+        ProjectConfig,
+        run_project_alignments,
+    )
 
     rows = synth.make_msa(300_000, seed=5)
     index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)

@@ -139,15 +139,15 @@ def test_cli_adversarial_matches_fixtures_and_jax(tmp_path):
 
 
 def _port_inprocess(sam, index, tmp_path, **kw):
-    from panvc3_tpu_torch.pipeline.project_alignments import run_project_alignments
+    from panvc3_tpu_torch.pipeline import project_alignments as port
 
     ranges = tmp_path / "inproc_ranges.tsv"
-    cfg = ProjectConfig(
+    cfg = port.ProjectConfig(
         msa_index_path=str(index),
         reference_path=GENOME,
         reference_msa_id="REF",
         ref_id_separator="/",
-        tags=TagSpec(rec_idx="XI"),
+        tags=port.TagSpec(rec_idx="XI"),
         engine="device",
         device_batch_size=32,
         preserve_tags=("XA",),
@@ -156,7 +156,7 @@ def _port_inprocess(sam, index, tmp_path, **kw):
         **kw,
     )
     out = io.BytesIO()
-    stats = run_project_alignments(io.BytesIO(sam), out, cfg, device="cpu")
+    stats = port.run_project_alignments(io.BytesIO(sam), out, cfg, device="cpu")
     return out.getvalue(), ranges.read_text(), stats
 
 

@@ -1,4 +1,5 @@
-"""The port imports no JAX and never falls back from CUDA to the CPU."""
+"""The port imports no JAX and nothing of panvc3_tpu, and never falls back
+from CUDA to the CPU."""
 
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "panvc3_tpu_torch"
 
 # imports every module of the port, runs a small slice of the pipeline
-# (the CLI on a tiny MSA, with integer and with quality scoring), then
-# checks that nothing imported JAX
+# (the CLI on a tiny MSA built with the port's own index, with integer and
+# with quality scoring), then lists any JAX or panvc3_tpu module loaded
 _SCRIPT = r"""
 import importlib, pkgutil, sys
 import numpy as np
@@ -24,9 +25,9 @@ import panvc3_tpu_torch
 for mod in pkgutil.walk_packages(panvc3_tpu_torch.__path__, "panvc3_tpu_torch."):
     if mod.name != "panvc3_tpu_torch.__main__":
         importlib.import_module(mod.name)
-from panvc3_tpu.bitvec import GapBitVector
-from panvc3_tpu.msa_index import ChrEntry, MsaIndex, SequenceEntry
+from panvc3_tpu_torch.bitvec import GapBitVector
 from panvc3_tpu_torch.cli.main import main
+from panvc3_tpu_torch.msa_index import ChrEntry, MsaIndex, SequenceEntry
 
 work = sys.argv[1]
 rng = np.random.default_rng(0)
@@ -60,6 +61,8 @@ for extra in ([], ["-q"]):
     assert sum(1 for ln in open(f"{work}/out.sam") if not ln.startswith("@")) == 40
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
+ref_pkg = sorted(m for m in sys.modules if m == "panvc3_tpu" or m.startswith("panvc3_tpu."))
+print("PANVC3_TPU_MODULES", ref_pkg)
 """
 
 
@@ -70,7 +73,9 @@ def test_port_runs_without_importing_jax(tmp_path):
         env=env, capture_output=True, timeout=300, cwd=str(tmp_path),
     )
     assert proc.returncode == 0, proc.stderr.decode()
-    assert "JAX_MODULES []" in proc.stdout.decode(), proc.stdout.decode()
+    out = proc.stdout.decode()
+    assert "JAX_MODULES []" in out, out
+    assert "PANVC3_TPU_MODULES []" in out, out
 
 
 def test_no_jax_import_statement_in_port():
@@ -81,11 +86,44 @@ def test_no_jax_import_statement_in_port():
     assert not offenders, offenders
 
 
+_REF_IMPORT = re.compile(
+    r"^\s*(import\s+panvc3_tpu(\.|\s|$|,)|from\s+panvc3_tpu(\.|\s))", re.MULTILINE
+)
+
+
+def test_no_panvc3_tpu_import_statement_in_port():
+    """Only ``panvc3_tpu_torch`` is imported by name: the port and
+    chip_smoke.py carry their own copies of the reference's host modules."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f) for f in files if _REF_IMPORT.search(f.read_text())]
+    assert not offenders, offenders
+    # the pattern does see such a line
+    assert _REF_IMPORT.search("from panvc3_tpu.io.sam import SamReader\n")
+    assert _REF_IMPORT.search("import panvc3_tpu\n")
+    assert not _REF_IMPORT.search("from panvc3_tpu_torch.io.sam import SamReader\n")
+
+
+def test_realign_batch_defaults_to_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from panvc3_tpu_torch.ops.realign_batch import realign_batch
+
+    refs, queries = [b"ACGTAC", b"GGA"], [b"ACTAC", b"GGTA"]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        realign_batch(refs, queries, 0, -1)
+    assert realign_batch(refs, queries, 0, -1, device="cpu") == [
+        [(2, "="), (1, "D"), (3, "=")],
+        [(2, "="), (1, "I"), (1, "=")],
+    ]
+
+
 def test_cuda_device_raises_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from panvc3_tpu.pipeline.project_alignments import ProjectConfig
-    from panvc3_tpu_torch.pipeline.project_alignments import run_project_alignments
+    from panvc3_tpu_torch.pipeline.project_alignments import (
+        ProjectConfig,
+        run_project_alignments,
+    )
 
     cfg = ProjectConfig(msa_index_path="missing.npz", engine="device")
     with pytest.raises(RuntimeError, match="cuda"):

@@ -305,6 +305,7 @@ def test_tiebreak_fixtures_quality_cases(route, monkeypatch, entries):
             got = trb.realign_batch(
                 [r[1].encode() for r in rows], [r[2].encode() for r in rows], go, ge,
                 trb.PINNED_REF_QUALS, [np.asarray(r[3], np.int32) for r in rows],
+                device="cpu",
             )
         else:
             B = len(rows)
