@@ -17,9 +17,10 @@ Phases, in order; any failure raises and exits non-zero:
    48x48 (the aggregate window the main path dispatches, length-sorted),
    16384 runs of random lengths up to 48x48 and 2048 of up to 128x128,
    its substitution entry on 4096 runs of 48x48 with an explicit
-   reference-quality tile, K2's fill on the two random shapes (every trace
-   cell), and the locked tie-break fixtures (integer ones through K1,
-   quality ones through K1's quality entry and through K2 plus the plain
+   reference-quality tile, K2's fill on the three shapes of K1's two
+   entries and at the edges of its schedule (every trace cell), and the
+   locked tie-break fixtures (integer ones through K1, quality ones
+   through K1's quality entry and through K2 plus the plain
    traceback).  A bound is the larger of the operations the inputs need
    (12 f32 operations per DP cell, at 33.5 T op/s: the H100's 67 TFLOP/s
    FP32 counts an FMA as two) and the bytes moved at 3.35 TB/s: the input
@@ -292,6 +293,56 @@ def check_k1_edges(rng, rows) -> None:
     )
 
 
+# (B, Q, R) at the edges of K2's schedule: R+1 at each chunk boundary (31,
+# 32, 33, 64, 65 and 129 columns) with Q on both sides of R, Q up to 300,
+# one run, B not a multiple of the runs per block, and R > 2047, where a
+# warp's rows leave shared memory for global scratch
+K2_EDGE_SHAPES = [
+    (77, q, r) for r in (30, 31, 32, 63, 64, 128) for q in (r + 11, r - 11)
+] + [(1, 48, 48), (21, 300, 40), (9, 300, 5), (3, 5, 3100)]
+
+
+def k2_edge_lengths(rng, B: int, Q: int, R: int):
+    """(m, n) int32 numpy arrays for K2's edge shapes: random lengths, and in
+    the first runs a full run, m = 0, n = 0, m > Q and n > R."""
+    import numpy as np
+
+    m = rng.integers(0, Q + 1, B).astype(np.int32)
+    n = rng.integers(0, R + 1, B).astype(np.int32)
+    k = min(B, 5)
+    m[:k] = [Q, 0, Q, Q + 3, Q][:k]
+    n[:k] = [R, R, 0, R, R + 9][:k]
+    return m, n
+
+
+def check_k2_edges(rng) -> None:
+    """K2 byte-equal to the plain fill in every trace cell at every edge
+    shape, with integer and Malde scores."""
+    import numpy as np
+    import torch
+
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops.realign_pallas import fill_batch
+
+    for B, Q, R in K2_EDGE_SHAPES:
+        ref, qry = random_runs(rng, B, Q, R, full=True)[:2]
+        m, n = (torch.from_numpy(a).cuda() for a in k2_edge_lengths(rng, B, Q, R))
+        qq = torch.from_numpy(rng.integers(0, 42, (B, Q)).astype(np.int32)).cuda()
+        rq = torch.from_numpy(rng.integers(0, 42, (B, R)).astype(np.int32)).cuda()
+        for scores, sub, go, ge in (
+            ("integer", trb._substitution_scores(ref, qry), -6.0, -1.0),
+            ("malde", trb._substitution_scores(ref, qry, rq, qq, True),
+             -6 * MALDE_SCALE, -MALDE_SCALE),
+        ):
+            got = fill_batch(sub, m, n, go, ge, R, Q)
+            if not torch.equal(got, trb._fill_batch(sub, m, n, go, ge, R, Q)):
+                raise AssertionError(f"K2 != plain version at B,Q,R={B, Q, R}, {scores} scores")
+    log(
+        f"[kernel] K2 edge shapes: {len(K2_EDGE_SHAPES)} shapes x 2 scorings "
+        "(integer, Malde) == plain version in every trace cell"
+    )
+
+
 def phase_kernels(card: str) -> dict:
     import numpy as np
     import torch
@@ -325,8 +376,6 @@ def phase_kernels(card: str) -> dict:
             lambda: realign_fused_reference(*args, kgo, kge, R, Q, qual=qual),
             card, results, k1_need(m, n, Q, R, "qual"),
         )
-        if full:
-            continue
         sub = trb._qual_scores(ref, qry, *qual)
         compare(
             "realign_fill_sub", shape,
@@ -347,6 +396,7 @@ def phase_kernels(card: str) -> dict:
         card, results, k1_need(args[2], args[3], Q, R, "sub"),
     )
     check_k1_edges(rng, rows)
+    check_k2_edges(rng)
 
     n_fix = 0
     for go, ge, args, _, R, Q, cigars in fixture_runs(quality=False):
@@ -609,14 +659,14 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     launches["realign_fused_sub"] = phase_batch(card, args.seed)
 
-    # each entry at the main path's shape: K1's window of 48x48 runs (the
-    # substitution entry's realign_batch call), K2's split-route window
+    # each entry at the main path's shape: the window of 48x48 runs (K1's
+    # and the split route's), the substitution entry's realign_batch call
     entries = []
     for entry, source, replaces, shape in (
         ("realign_fused_int", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48, "full")),
         ("realign_fused_qual", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48, "full")),
         ("realign_fused_sub", FUSED_SOURCE, K1_REPLACES, (4096, 48, 48, "random")),
-        ("realign_fill_sub", FILL_SOURCE, K2_REPLACES, (16384, 48, 48, "random")),
+        ("realign_fill_sub", FILL_SOURCE, K2_REPLACES, (16384, 48, 48, "full")),
     ):
         k_ms, p_ms, b_ms, b_by = kern[entry]["timing"][shape]
         entries.append({

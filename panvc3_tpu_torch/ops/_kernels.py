@@ -56,7 +56,7 @@ _SIGNATURES = {
     ),
     "realign_fill_sub": (
         "realign_fill.cu",
-        [_P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P],
     ),
 }
 
@@ -64,7 +64,10 @@ _SIGNATURES = {
 LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 
 # C helpers that launch nothing (not counted): name -> (source, argtypes)
-_HELPERS = {"realign_fused_scratch": ("realign_fused.cu", [_I, _I, _I])}
+_HELPERS = {
+    "realign_fused_scratch": ("realign_fused.cu", [_I, _I, _I]),
+    "realign_fill_scratch": ("realign_fill.cu", [_I]),
+}
 
 
 def nvcc_path() -> str:

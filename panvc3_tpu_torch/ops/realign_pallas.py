@@ -45,14 +45,17 @@ def fill_batch(sub, m, n, go, ge, R: int, Q: int):
     trace = torch.empty((B, Q + 1, R + 1), dtype=torch.uint8, device=dev)
     if B == 0:
         return trace
-    best = torch.empty((R + 1, B), dtype=torch.float32, device=dev)
-    vert = torch.empty((R + 1, B), dtype=torch.float32, device=dev)
+    # each warp's previous DP row lives in shared memory where it fits,
+    # else in this global scratch ([B, words])
+    words = _kernels.kernel("realign_fill_scratch")(R)
+    scratch = torch.empty((B, words), dtype=torch.float32, device=dev) if words else None
     with torch.cuda.device(dev):
         _kernels.launch(
             "realign_fill_sub",
             sub.data_ptr(), m.data_ptr(), n.data_ptr(),
             float(go), float(ge), B, R, Q,
-            best.data_ptr(), vert.data_ptr(), trace.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            trace.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return trace

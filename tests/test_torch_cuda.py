@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_EDGE_SHAPES
+from chip_smoke import K1_EDGE_SHAPES, K2_EDGE_SHAPES, k2_edge_lengths
 
 pytestmark = pytest.mark.cuda
 
@@ -106,19 +106,26 @@ def test_quality_entries_match_plain_version(cuda, mode, B, Q, R, go, ge):
     assert torch.equal(cnt, want_cnt)
 
 
+# K2's shapes: a few of the split route's and the edges of its schedule
+# (chip_smoke.K2_EDGE_SHAPES: every chunk boundary, R on both sides of Q,
+# long queries, one run, B not a multiple of the runs per block, the
+# global-scratch branch)
 @pytest.mark.parametrize(
     "B,Q,R",
-    [(300, 16, 16), (4096, 48, 48), (256, 128, 128), (40, 24, 48), (33, 7, 29), (1, 1, 1)],
+    [(300, 16, 16), (4096, 48, 48), (256, 128, 128), (40, 24, 48), (33, 7, 29), (1, 1, 1)]
+    + K2_EDGE_SHAPES,
 )
 @pytest.mark.parametrize("scores", ["integer", "malde"])
 def test_fill_kernel_matches_plain_version(cuda, scores, B, Q, R):
-    """K2: every trace cell, rows past m and columns past n included."""
+    """K2: every trace cell, rows past m and columns past n included, with
+    runs of m = 0, n = 0, m > Q and n > R."""
     from panvc3_tpu_torch.ops import _kernels
     from panvc3_tpu_torch.ops import realign_batch as trb
     from panvc3_tpu_torch.ops.realign_pallas import fill_batch
 
     rng = np.random.default_rng(B * 7 + Q + R)
-    ref, qry, m, n = [t.to(cuda) for t in _runs(rng, B, Q, R)]
+    ref, qry = [t.to(cuda) for t in _runs(rng, B, Q, R)[:2]]
+    m, n = (torch.from_numpy(a).to(cuda) for a in k2_edge_lengths(rng, B, Q, R))
     if scores == "integer":
         sub, go, ge = trb._substitution_scores(ref, qry), 0.0, -1.0
     else:
