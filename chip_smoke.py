@@ -42,9 +42,20 @@ Phases, in order; any failure raises and exits non-zero:
    lane with the Malde tables; the three SAMs must be equal;
 6. batch realignment with explicit reference qualities (the library entry
    realign_batch) on the card must launch K1's substitution entry and
-   give the host C DP's CIGARs.
+   give the host C DP's CIGARs;
+7. the device geometry routes and the object path on the same MSA and
+   reads, every row on the device lane: (a) the fast lane with
+   PANVC3_EVENT_GEOMETRY=0 (the gap kernel over the device gap index,
+   whose build time and table size it prints), (b) the fast lane with
+   PANVC3_EVENT_GEOMETRY=device (the device event geometry; it prints how
+   many batches overflowed to the host event path), (c) the object path
+   (ProjectConfig(fastlane=False), parsed records through BatchProjector)
+   and (d) the object path under -q, both in-process through
+   run_project_alignments.  The SAMs of (a)-(c) must equal phase 4's
+   device-lane SAM and that of (d) phase 5's; (c) and (d) must launch K1's
+   integer and quality entries.
 
-Launch counts are set to 0 just before each path of phases 4-6 and read
+Launch counts are set to 0 just before each path of phases 4-7 and read
 just after it.  The kernels' JSON summary and the card's name and power
 limit come before the last line, which is {"ok": true, "device": {...}}.
 Every timing is printed beside the card's name and power limit.
@@ -440,23 +451,35 @@ def records(sam: bytes) -> list[list[bytes]]:
 
 
 class Tool:
-    """Runs the port's CLI entry in-process on the chr21-scale inputs."""
+    """Runs the port's CLI entry, or its object path, in-process on the
+    chr21-scale inputs."""
+
+    ENV_KEYS = (
+        "PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS", "PANVC3_PALLAS_FUSED",
+        "PANVC3_EVENT_GEOMETRY",
+    )
 
     def __init__(self, card: str, work: pathlib.Path, index_path, fasta_path):
         self.card, self.work = card, work
         self.index_path, self.fasta_path = index_path, fasta_path
 
-    def run(self, tag: str, env: dict, sam: pathlib.Path, quality: bool = False):
+    def run(self, tag: str, env: dict, sam: pathlib.Path, quality: bool = False,
+            fastlane: bool = True):
         """(SAM bytes, wall seconds, launches by entry, aggregate diag) of
         one call, which also prints its reads/s and peak device memory; the
-        counts start at 0 here."""
+        counts start at 0 here.  ``fastlane=False`` runs the object path
+        through ``run_project_alignments`` with the CLI's settings."""
         import torch
 
         from panvc3_tpu_torch.cli.main import main as cli_main
         from panvc3_tpu_torch.ops import _kernels
-        from panvc3_tpu_torch.pipeline import fastlane
+        from panvc3_tpu_torch.pipeline import fastlane as fl
+        from panvc3_tpu_torch.pipeline.project_alignments import (
+            ProjectConfig,
+            run_project_alignments,
+        )
 
-        for key in ("PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS", "PANVC3_PALLAS_FUSED"):
+        for key in self.ENV_KEYS:
             os.environ.pop(key, None)
         os.environ.update(env)
         out_path = self.work / f"{tag}.sam"
@@ -466,16 +489,26 @@ class Tool:
             "-d", "REF", "-s", "/", "--msa-index-chr-shard", "0/1",
             "-o", str(out_path), "--status-output-interval", "0",
         ] + (["-q"] if quality else [])
+        cfg = ProjectConfig(
+            msa_index_path=str(self.index_path), reference_path=str(self.fasta_path),
+            reference_msa_id="REF", ref_id_separator="/", chr_shard=(0, 1),
+            status_output_interval=0, engine="device", fastlane=False,
+            use_read_base_qualities=quality,
+        )
         _kernels.reset_launches()
-        for key in fastlane.AGG_DIAG:
-            fastlane.AGG_DIAG[key] = 0
+        for key in fl.AGG_DIAG:
+            fl.AGG_DIAG[key] = 0
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        rc = cli_main(argv)
+        if fastlane:
+            rc = cli_main(argv)
+        else:
+            run_project_alignments(str(sam), str(out_path), cfg, device="cuda")
+            rc = 0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = dict(_kernels.LAUNCHES)
-        diag = dict(fastlane.AGG_DIAG)
+        diag = dict(fl.AGG_DIAG)
         peak = torch.cuda.max_memory_allocated() / 2**20
         if rc != 0:
             raise RuntimeError(f"project_alignments ({tag}) exited {rc}")
@@ -484,7 +517,7 @@ class Tool:
         if n_out != N_READS and sam.name != "one_read.sam":
             raise AssertionError(f"{tag} wrote {n_out} records, expected {N_READS}")
         log(
-            f"[slice] {tag}: {N_READS / wall:.0f} reads/s ({wall:.2f} s, whole "
+            f"[slice] {tag}: {n_out / wall:.0f} reads/s ({wall:.2f} s, whole "
             f"tool call incl. index/FASTA load); peak device memory {peak:.1f} MiB; "
             f"launches {json.dumps({k: v for k, v in launches.items() if v})}; "
             f"aggregate diag {json.dumps(diag)} ({self.card})"
@@ -554,7 +587,91 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
         f"({N_READS} records, @PG stripped); {changed} records' CIGARs differ "
         "from the integer run's"
     )
+    phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used)
     return used
+
+
+def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used) -> None:
+    """Phase 7: the fast lane over the gap kernel (=0) and over the device
+    event geometry (=device), then the object path, integer and -q, each
+    against the device-lane SAM of phase 4 or 5.  The object path's K1
+    launches join ``used``."""
+    import torch
+
+    from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
+
+    device = {"PANVC3_HOST_DP": "0"}
+
+    # (a) the gap kernel; its index is built on the first batch, timed here
+    # (what is kept of it is numbers: the index itself dies with the call)
+    builds = []
+    build = DeviceGapIndex.__dict__["build"]
+
+    def timed_build(cls, *args, **kw):
+        t0 = time.perf_counter()
+        index = build.__func__(cls, *args, **kw)
+        torch.cuda.synchronize()
+        tables = {
+            key: getattr(index, key).numel() * getattr(index, key).element_size()
+            for key in DeviceGapIndex.FIELDS if getattr(index, key) is not None
+        }
+        builds.append((time.perf_counter() - t0, index.device.type, tables))
+        return index
+
+    DeviceGapIndex.build = classmethod(timed_build)
+    try:
+        gap_sam, _, launches, diag = tool.run(
+            "int-gap-kernel", {**device, "PANVC3_EVENT_GEOMETRY": "0"}, sam_path
+        )
+    finally:
+        DeviceGapIndex.build = build
+    if len(builds) != 1 or builds[0][1] != "cuda":
+        raise AssertionError(f"the gap kernel row built {len(builds)} device gap indexes")
+    secs, _, tables = builds[0]
+    log(
+        f"[geometry] gap index build {secs:.2f} s (host build + one copy to the "
+        f"card); tables on the card {sum(tables.values()) / 2**20:.1f} MiB: "
+        + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in tables.items() if v >= 2**20)
+        + f"; {diag['geometry_overflow']} batches fetched their full deletion runs "
+        f"({tool.card})"
+    )
+    if launches["realign_fused_int"] <= 0:
+        raise AssertionError("the gap-kernel row did not launch K1")
+
+    # (b) the device event geometry
+    ev_sam, _, launches, diag = tool.run(
+        "int-device-events", {**device, "PANVC3_EVENT_GEOMETRY": "device"}, sam_path
+    )
+    log(
+        f"[geometry] device event geometry: {diag['geometry_overflow']} batches "
+        f"overflowed to the host event path ({tool.card})"
+    )
+    if launches["realign_fused_int"] <= 0:
+        raise AssertionError("the device-event row did not launch K1")
+
+    # (c), (d) the object path
+    obj_sam, _, launches, _ = tool.run("int-object", device, sam_path, fastlane=False)
+    used["realign_fused_int"] += launches["realign_fused_int"]
+    if launches["realign_fused_int"] <= 0:
+        raise AssertionError("the object path did not launch K1's integer entry")
+    q_obj, _, launches, _ = tool.run(
+        "q-object", device, q_sam_path, quality=True, fastlane=False
+    )
+    used["realign_fused_qual"] += launches["realign_fused_qual"]
+    if launches["realign_fused_qual"] <= 0:
+        raise AssertionError("the -q object path did not launch K1's quality entry")
+
+    want = strip_pg(dev_sam)
+    for tag, got in (("gap kernel", gap_sam), ("device events", ev_sam), ("object path", obj_sam)):
+        if strip_pg(got) != want:
+            raise AssertionError(f"{tag}: SAM differs from the device lane's")
+    if strip_pg(q_obj) != strip_pg(q_dev):
+        raise AssertionError("-q object path: SAM differs from the -q device lane's")
+    log(
+        f"[geometry] gap kernel, device events and object path SAMs == "
+        f"integer device-lane SAM; -q object path SAM == -q device-lane SAM "
+        f"({N_READS} records, @PG stripped)"
+    )
 
 
 def phase_batch(card: str, seed: int) -> int:

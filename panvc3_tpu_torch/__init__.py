@@ -14,10 +14,11 @@ old layout and names:
 
 - ``panvc3_tpu_torch.native``        builds and loads the C host extension
 - ``panvc3_tpu_torch.ops``           the realignment DP (hand-written CUDA
-  kernels and their plain PyTorch versions), the wire functions around it,
-  the host event geometry and the batch projector's device state
-- ``panvc3_tpu_torch.pipeline``      project_alignments: the fast lane
-  (device engine) and the host engine
+  kernels and their plain PyTorch versions) and the wire functions around
+  it; in plain PyTorch the device gap index, the rewrite math and gap
+  kernel, the event geometry (host and device) and the batch projector
+- ``panvc3_tpu_torch.pipeline``      project_alignments: the fast lane and
+  the object path (device engine) and the host engine
 - ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch project_alignments``
 
 Device choice is explicit: functions take a ``torch.device``; the CLI's

@@ -35,6 +35,13 @@ def pack_bits(bits: np.ndarray) -> np.ndarray:
     return out.view("<u4")
 
 
+def unpack_bits(words: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of :func:`pack_bits`; returns uint8[n]."""
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    return bits[:n]
+
+
 def _popcount32(x: np.ndarray) -> np.ndarray:
     if hasattr(np, "bitwise_count"):  # numpy >= 2.0
         return np.bitwise_count(np.asarray(x, dtype=np.uint32)).astype(np.int64)

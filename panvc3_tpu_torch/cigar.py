@@ -12,7 +12,10 @@ import re
 from .native import get_native
 
 OPS = "MIDNSHP=X"
+OP_TO_CODE = {op: i for i, op in enumerate(OPS)}
 CODE_TO_OP = {i: op for i, op in enumerate(OPS)}
+
+M, I, D, N, S, H, P, EQ, X = range(9)
 
 # Which ops consume the query (SAMv1 table).
 CONSUMES_QUERY = frozenset("MIS=X")

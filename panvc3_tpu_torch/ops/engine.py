@@ -1,19 +1,50 @@
-"""The batch projector's device state, as the fast lane uses it.
+"""The batched projection engine: device rewrite + device realignment.
 
-Counterpart of ``panvc3_tpu.ops.engine.BatchProjector``, holding only what
-``pipeline/fastlane.run_fast`` touches: the deduplicated device sequence
-ids, the realignment wall-time counter, and the flat reference (host bytes
-plus a lazily made uint8 copy on the projector's device) that the
-ref-gather wires read.  The gap-index tables (``.index``) belong to the
-gap kernel, which is not ported yet.
+Counterpart of ``panvc3_tpu.ops.engine.BatchProjector`` minus the fused
+engines (ROADMAP Queue 1 item 6).  A batch of SAM records is expanded on
+the host (``expand_cigars``), the gap kernel runs on the projector's
+device over the device gap index (``.index``, built on first use), the
+host compares characters and finalizes the rewritten CIGARs and their
+indel runs (the C extension), the runs are realigned on the device
+(``realign_batch_start``: K1, or the host C DP for small batches), and the
+results are spliced into per-record ``ProjectionResult``s.  The fast lane
+(``pipeline/fastlane.run_fast``) uses only the device sequence ids, the
+realignment timer and the flat reference of this object.
+
+Shapes are padded to power-of-two buckets, as in the JAX version, so both
+give the same batches.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
+
+from ..alphabet import decode_phred42, normalise_dna5
+from ..cigar import CODE_TO_OP, collapse_cigar
+from ..indel_runs import IndelRun, find_indel_runs
+from ..native import get_native
+from ..projector import ProjectionResult
+from .fetch import DeviceFetch
+from .rank_select import DeviceGapIndex
+from .realign_batch import PINNED_REF_QUALS, realign_batch_finish, realign_batch_start
+from .rewrite_batch import (
+    expand_cigars,
+    fetch_gap_outputs,
+    finalize_rewrite,
+    reconstruct_main_code,
+    rewrite_gap_kernel_packed,
+)
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
 
 
 class BatchProjector:
@@ -36,13 +67,23 @@ class BatchProjector:
 
         # device sequence ids: gap vectors deduplicated by identity; None
         # entries (references outside this index shard) get -1
+        vectors = []
         ids: dict[int, int] = {}
 
         def dev_id(entry):
-            return ids.setdefault(id(entry.gaps), len(ids))
+            key = id(entry.gaps)
+            if key not in ids:
+                ids[key] = len(vectors)
+                vectors.append(entry.gaps)
+            return ids[key]
 
         self.src_dev_ids = [dev_id(e) if e is not None else -1 for e in src_entries]
         self.dst_dev_ids = [dev_id(e) if e is not None else -1 for e in dst_entries]
+        # the gap index costs O(columns) build time and memory; only the gap
+        # kernel (the object path, PANVC3_EVENT_GEOMETRY=0) reads it
+        self._vectors = vectors
+        self._index = None
+        self._index_lock = threading.Lock()
 
         # The lock pairs _ensure_refs (main thread, streams contigs in)
         # with ref_flat_snapshot (the drain thread reads a consistent
@@ -55,7 +96,9 @@ class BatchProjector:
     @classmethod
     def from_numpy_state(cls, state: dict, device) -> "BatchProjector":
         """A projector rebuilt from plain numpy/int state (the keys of
-        :meth:`numpy_state`), such as ``panvc3_tpu``'s projector holds."""
+        :meth:`numpy_state`), such as ``panvc3_tpu``'s projector holds.  An
+        ``index`` entry (``DeviceGapIndex.numpy_state`` layout) gives the
+        gap index; without it the projector has none."""
         bp = cls.__new__(cls)
         bp.device = torch.device(device)
         bp.gap_opening_cost = int(state["gap_opening_cost"])
@@ -64,6 +107,13 @@ class BatchProjector:
         bp.realignment_time_ns = 0
         bp.src_dev_ids = [int(v) for v in state["src_dev_ids"]]
         bp.dst_dev_ids = [int(v) for v in state["dst_dev_ids"]]
+        bp._vectors = []
+        bp._index = (
+            DeviceGapIndex.from_numpy_state(state["index"], bp.device)
+            if state.get("index") is not None
+            else None
+        )
+        bp._index_lock = threading.Lock()
         bp._ref_lock = threading.Lock()
         bp._ref_flat = None
         bp._ref_flat_host = np.array(state["ref_flat_host"], dtype=np.uint8)
@@ -71,7 +121,8 @@ class BatchProjector:
         return bp
 
     def numpy_state(self) -> dict:
-        """Plain numpy/int state: enough to rebuild the projector."""
+        """Plain numpy/int state: enough to rebuild the projector (add the
+        index's ``numpy_state`` under ``index`` to carry the gap index)."""
         with self._ref_lock:
             return {
                 "gap_opening_cost": self.gap_opening_cost,
@@ -84,11 +135,13 @@ class BatchProjector:
             }
 
     @property
-    def index(self):
-        raise NotImplementedError(
-            "BatchProjector.index: the device gap index and the gap kernel "
-            "are ROADMAP Queue 1 item 4"
-        )
+    def index(self) -> DeviceGapIndex:
+        """The device gap index on the projector's device, built on first
+        use."""
+        with self._index_lock:
+            if self._index is None:
+                self._index = DeviceGapIndex.build(self._vectors, device=self.device)
+            return self._index
 
     def _ensure_refs(self, ref_seqs: dict[int, bytes]) -> None:
         with self._ref_lock:
@@ -132,3 +185,215 @@ class BatchProjector:
                 self._ref_flat_host.copy()
             ).to(self.device)
         return self._ref_flat
+
+    # -- the batch pipeline: start_batch -> finish_rewrite -> finish_realign
+
+    def start_batch(self, records, ref_seqs: dict[int, bytes], cfg):
+        """Stage a batch and launch its gap kernel on the device; the
+        outputs head for pinned host memory at once.  Returns an opaque
+        handle for :meth:`finish_batch` (None for no records)."""
+        if getattr(cfg, "fused_kernel", False):
+            raise NotImplementedError(
+                "the fused engines (--fused-kernel) are ROADMAP Queue 1 item 6"
+            )
+        self._ensure_refs(ref_seqs)
+        if not records:
+            return None
+
+        queries = [normalise_dna5(rec.seq) for rec in records]
+        cigars = [rec.cigar for rec in records]
+        dst_ref_ids = [self.ref_id_mapping[rec.ref_id] for rec in records]
+
+        max_ops = 1
+        max_ref_units = 1
+        for cig in cigars:
+            max_ops = max(max_ops, len(cig))
+            max_ref_units = max(max_ref_units, sum(n for n, op in cig if op in "M=XDN"))
+        max_q = max(1, max(len(q) for q in queries))
+
+        batch = expand_cigars(
+            cigars,
+            [rec.pos for rec in records],
+            queries,
+            [self.src_dev_ids[rec.ref_id] for rec in records],
+            [self.dst_dev_ids[r] for r in dst_ref_ids],
+            [self._ref_off[r] for r in dst_ref_ids],
+            pad_ops=next_pow2(max_ops),
+            pad_ref_units=max(2, next_pow2(max_ref_units)),
+            pad_query=max(2, next_pow2(max_q)),
+        )
+        # the gap kernel reads four arrays per record
+        kernel_inputs = [batch.src_seq, batch.dst_seq, batch.rec_src_pos, batch.n_ref_units]
+        # bucket the batch dimension: pad to the configured batch size, or
+        # the next power of two below it, with copies of the first row
+        # (their results are sliced off)
+        b = len(records)
+        target = int(getattr(cfg, "device_batch_size", 0)) or b
+        n_pad = max(0, min(target, next_pow2(b)) - b)
+        if n_pad:
+            kernel_inputs = [
+                np.concatenate([a, np.repeat(a[:1], n_pad, axis=0)]) for a in kernel_inputs
+            ]
+        out = rewrite_gap_kernel_packed(self.index, *kernel_inputs, batch.pad_ref_units)
+        fetch = DeviceFetch(*out[:6])
+        # the host reference snapshot: a later batch's _ensure_refs may
+        # rebuild it while this batch is in flight
+        return ("split", records, queries, dst_ref_ids, batch, (fetch, out[6]),
+                ref_seqs, cfg, n_pad, self._ref_flat_host)
+
+    def finish_batch(self, handle) -> list[ProjectionResult]:
+        """Fetch and post-process a batch started with start_batch."""
+        return self.finish_realign(self.finish_rewrite(handle))
+
+    def finish_rewrite(self, handle):
+        """Stage 2: fetch the gap kernel's outputs, finalize on the host and
+        dispatch the realignment DP.  Returns a handle for
+        :meth:`finish_realign`."""
+        if handle is None:
+            return None
+        (_, records, queries, dst_ref_ids, batch, (fetch, d_run_full), ref_seqs,
+         cfg, n_pad, ref_flat_host) = handle
+        b = len(records)
+        R = batch.pad_ref_units
+        dst_pos_a, d_run, isgap = fetch_gap_outputs([*fetch.get(), d_run_full], R)
+        if n_pad:
+            dst_pos_a, d_run, isgap = dst_pos_a[:b], d_run[:b], isgap[:b]
+        ref_lens = np.fromiter(
+            (len(ref_seqs[r]) for r in dst_ref_ids), dtype=np.int64, count=b
+        )
+        main_code = reconstruct_main_code(
+            batch.unit_op, batch.unit_count, batch.unit_rec, b, R,
+            dst_pos_a.astype(np.int32), d_run, isgap, np.asarray(batch.query),
+            ref_flat_host, batch.ref_off, ref_lens,
+        )
+        dst_pos, rewritten, record_runs = self._finalize_any(
+            batch, dst_pos_a, d_run, main_code, b
+        )
+        t0 = time.perf_counter_ns()
+        rh = self._dispatch_realign(records, queries, dst_ref_ids, ref_seqs, cfg, record_runs)
+        self.realignment_time_ns += time.perf_counter_ns() - t0
+        return ("split2", records, dst_pos, rewritten, record_runs, rh)
+
+    def finish_realign(self, handle2) -> list[ProjectionResult]:
+        """Stage 3: fetch the realignment results and splice."""
+        if handle2 is None:
+            return []
+        _, records, dst_pos, rewritten, record_runs, rh = handle2
+        t0 = time.perf_counter_ns()
+        realigned = realign_batch_finish(rh)
+        self.realignment_time_ns += time.perf_counter_ns() - t0
+        return self._splice(records, dst_pos, rewritten, record_runs, realigned)
+
+    def project_batch(self, records, ref_seqs: dict[int, bytes], cfg) -> list[ProjectionResult]:
+        """Synchronous convenience wrapper around start/finish."""
+        return self.finish_batch(self.start_batch(records, ref_seqs, cfg))
+
+    def _dispatch_realign(self, records, queries, dst_ref_ids, ref_seqs, cfg, record_runs):
+        """Stage the indel runs and dispatch the batched realignment on the
+        projector's device; None when there is nothing to realign."""
+        use_quality = bool(getattr(cfg, "use_read_base_qualities", False))
+        run_refs: list[bytes] = []
+        run_queries: list[bytes] = []
+        # reference qualities are always pinned to phred42 max (the
+        # reference's rule): the sentinel says so without per-run arrays
+        run_ref_quals = PINNED_REF_QUALS if use_quality else None
+        run_query_quals: list[np.ndarray] | None = [] if use_quality else None
+        for i, rec in enumerate(records):
+            ref_seq = ref_seqs[dst_ref_ids[i]]
+            for run in record_runs[i]:
+                run_refs.append(
+                    normalise_dna5(ref_seq[run.ref_start:run.ref_start + run.ref_length])
+                )
+                query_part = queries[i][run.query_start:run.query_start + run.query_length]
+                run_queries.append(query_part)
+                if use_quality:
+                    q = decode_phred42(rec.qual) if rec.qual != "*" else None
+                    if q is None:
+                        run_query_quals.append(np.zeros(len(query_part), np.int32))
+                    else:
+                        run_query_quals.append(np.asarray(
+                            q[run.query_start:run.query_start + run.query_length],
+                            dtype=np.int32,
+                        ))
+        if not run_refs:
+            return None
+        return realign_batch_start(
+            run_refs,
+            run_queries,
+            self.gap_opening_cost,
+            self.gap_extension_cost,
+            run_ref_quals,
+            run_query_quals,
+            pad_ref=next_pow2(max(1, max(len(r) for r in run_refs))),
+            pad_query=next_pow2(max(1, max(len(q) for q in run_queries))),
+            device=self.device,
+        )
+
+    def _finalize_any(self, batch, dst_pos_a, d_run, main_code, b):
+        """The C finalize; where no C extension is loaded (the port always
+        loads one: only a test takes it away), the numpy
+        ``finalize_rewrite`` and ``find_indel_runs``, which the tests hold
+        the C finalize against."""
+        if get_native() is not None:
+            return self._finalize_native(batch, dst_pos_a, d_run, main_code, b)
+        dst_pos, rewritten = finalize_rewrite(batch, dst_pos_a, d_run, main_code)
+        record_runs = [find_indel_runs(rewritten[i], dst_pos[i]) for i in range(b)]
+        return dst_pos, rewritten, record_runs
+
+    def _finalize_native(self, batch, dst_pos_a, d_run, main_code, b):
+        """The C merge of the rewritten CIGARs and their indel runs."""
+        native = get_native()
+        valid = np.arange(batch.pad_ref_units)[None, :] < batch.n_ref_units[:, None]
+        n_units = np.bincount(batch.unit_rec, minlength=b).astype(np.int32)
+        run_ops_b, run_lens_b, runs_per_rec_b, indel_b = native.finalize_rewrite(
+            np.ascontiguousarray(batch.unit_op),
+            np.ascontiguousarray(batch.unit_count),
+            n_units,
+            np.ascontiguousarray(d_run[valid]),
+            np.ascontiguousarray(main_code[valid]),
+            np.ascontiguousarray(dst_pos_a.astype(np.int32)),
+        )
+        run_ops = np.frombuffer(run_ops_b, dtype=np.int8)
+        run_lens = np.frombuffer(run_lens_b, dtype=np.int32)
+        runs_per_rec = np.frombuffer(runs_per_rec_b, dtype=np.int32)
+        run_off = np.concatenate([[0], np.cumsum(runs_per_rec)])
+        ops_l = run_ops.tolist()
+        lens_l = run_lens.tolist()
+        rewritten = [
+            [(lens_l[j], CODE_TO_OP[ops_l[j]]) for j in range(run_off[i], run_off[i + 1])]
+            for i in range(b)
+        ]
+        dst_pos = [int(p) for p in dst_pos_a]
+        record_runs: list[list] = [[] for _ in range(b)]
+        indel_rows = np.frombuffer(indel_b, dtype=np.int32).reshape(-1, 9)
+        for rec_i, r0, rl, q0, ql, cs, ce, cr, cq in indel_rows.tolist():
+            record_runs[rec_i].append(IndelRun(
+                ref_start=r0, ref_length=rl, query_start=q0, query_length=ql,
+                cigar_start=cs, cigar_end=ce, checker_ref_pos=cr, checker_query_pos=cq,
+            ))
+        return dst_pos, rewritten, record_runs
+
+    def _splice(self, records, dst_pos, rewritten, record_runs, realigned):
+        """Splice the realigned runs into the rewritten CIGARs (already
+        RLE-collapsed, so records without runs pass through)."""
+        results: list[ProjectionResult] = []
+        run_idx = 0
+        for i in range(len(records)):
+            runs = record_runs[i]
+            res = ProjectionResult(dst_pos=dst_pos[i], cigar=rewritten[i])
+            if runs:
+                out = []
+                copy_from = 0
+                for run in runs:
+                    out.extend(rewritten[i][copy_from:run.cigar_start])
+                    copy_from = run.cigar_end
+                    res.realigned_reference_ranges.append((run.checker_ref_pos, run.ref_length))
+                    res.realigned_query_ranges.append((run.query_start, run.query_length))
+                    res.num_realignments += 1
+                    res.realigned_total_length += max(run.ref_length, run.query_length)
+                    out.extend(realigned[run_idx])
+                    run_idx += 1
+                out.extend(rewritten[i][copy_from:])
+                res.cigar = collapse_cigar(out)
+            results.append(res)
+        return results

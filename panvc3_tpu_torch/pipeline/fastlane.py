@@ -17,13 +17,16 @@ order at fetch.  Each dispatch copies its result into pinned host memory
 on the stream that ran the kernel and records an event after the copy;
 the fetch pool waits on that event.
 
-Covered: host event geometry (``PANVC3_EVENT_GEOMETRY`` unset or ``1``),
-integer scoring and quality scoring (``-q``: the Malde tables with the
-reference qualities pinned to phred42 max, gap costs x ``MALDE_SCALE`` on
-every lane).  ``PANVC3_EVENT_GEOMETRY=device``/``=0`` raise
-``NotImplementedError`` naming their ROADMAP item.  Output is
-byte-identical to ``panvc3_tpu``'s fast lane and object path; the
-ordering invariants are those of the original
+The rewrite geometry of each batch comes from one of three places, chosen
+by ``PANVC3_EVENT_GEOMETRY``: the host event geometry (unset or ``1``), the
+device event geometry (``device``: ``DeviceEventGeometry.kernel_wire``,
+with the host event path as the fallback on event-slot overflow), or the
+gap kernel over the device gap index (``0``: ``rewrite_gap_kernel_wire``,
+with a fetch of the full deletion runs on overflow).  Integer scoring and
+quality scoring (``-q``: the Malde tables with the reference qualities
+pinned to phred42 max, gap costs x ``MALDE_SCALE`` on every lane) are
+covered.  Output is byte-identical to ``panvc3_tpu``'s fast lane and
+object path; the ordering invariants are those of the original
 (CLAUDE.md): one writer thread emits in submission order, every fetch
 goes through ``_restore``, and ``PANVC3_FASTLANE_CHAOS`` jitters every
 cross-thread handoff.
@@ -42,7 +45,9 @@ import torch
 from ..align import MALDE_SCALE, malde_tables
 from ..native import get_native
 from ..ops import _kernels
-from ..ops.event_geometry import EventGeometry, project_unit
+from ..ops.engine import next_pow2
+from ..ops.event_geometry import DeviceEventGeometry, EventGeometry, project_unit
+from ..ops.fetch import DeviceFetch
 from ..ops.realign_batch import (
     QUAL_MAX_STEPS,
     _realign_wire,
@@ -62,21 +67,29 @@ from ..ops.realign_batch import (
     unpack_realign_refgather_wire,
     unpack_realign_wire,
 )
+from ..ops.rewrite_batch import (
+    D_SPARSE_SLOTS,
+    pack_gap_wire_input,
+    rewrite_gap_kernel_wire,
+    unpack_gap_wire,
+)
 from ..utils import StatusReporter, format_duration, log_time
 
 FLAG_SKIP = 0x4 | 0x200 | 0x400  # unmapped | QC fail | duplicate
-
-# sparse deletion slots of the rewrite geometry (panvc3_tpu.ops.rewrite_batch)
-D_SPARSE_SLOTS = 8
 
 # PANVC3_FASTLANE_PROF=1: per-stage wall-time totals and the aggregate
 # diagnostics printed at the end of the run
 _PROF = os.environ.get("PANVC3_FASTLANE_PROF") == "1"
 
-# Aggregate-dispatch diagnostics (mutated only on the writer thread; read
-# by tests and PANVC3_FASTLANE_PROF reporting): counts of dispatches and
-# which wire/layout variants engaged.
-AGG_DIAG = {"dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0}
+# Diagnostics (read by tests and PANVC3_FASTLANE_PROF reporting): counts
+# of aggregate dispatches and of the wire/layout variants that engaged
+# (mutated only on the writer thread), and of batches whose device rewrite
+# geometry overflowed (``geometry_overflow``, under _DIAG_LOCK).
+AGG_DIAG = {
+    "dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0,
+    "geometry_overflow": 0,
+}
+_DIAG_LOCK = threading.Lock()
 
 
 class LaneController:
@@ -369,13 +382,9 @@ _ADAPT = LaneController()
 
 
 def check_covered(cfg) -> None:
-    """Raise NotImplementedError for a configuration the port's fast lane
-    does not run; nothing falls through to another path (BAM input raises
-    in ``SamReader``)."""
-    if not cfg.fastlane:
-        raise NotImplementedError(
-            "the object (non-fast-lane) device path is not ported; see ROADMAP"
-        )
+    """Raise NotImplementedError for a configuration the port's device
+    engine does not run; nothing falls through to another path (BAM input
+    raises in ``SamReader``)."""
     if cfg.output_bam:
         raise NotImplementedError(
             "BAM input/output on the port's fast lane is ROADMAP Queue 1 item 8"
@@ -388,47 +397,32 @@ def check_covered(cfg) -> None:
         raise NotImplementedError(
             "--data-parallel (multi-GPU) is ROADMAP Queue 1 item 7"
         )
-    ev_mode = os.environ.get("PANVC3_EVENT_GEOMETRY", "1")
-    if ev_mode == "device":
-        raise NotImplementedError(
-            "PANVC3_EVENT_GEOMETRY=device (DeviceEventGeometry) is ROADMAP "
-            "Queue 1 item 3"
+
+
+def fastlane_eligible(cfg, batch_engine=None) -> bool:
+    """Whether the fast lane runs this configuration; the caller takes the
+    object path otherwise.  Device sequence ids must fit the gap wire's
+    u16 fields (a >65k-sequence index should be sharded with
+    ``--msa-index-chr-shard``)."""
+    return not cfg.fused_kernel and (
+        batch_engine is None
+        or max(
+            max(batch_engine.src_dev_ids, default=0),
+            max(batch_engine.dst_dev_ids, default=0),
         )
-    if ev_mode == "0":
-        raise NotImplementedError(
-            "PANVC3_EVENT_GEOMETRY=0 (the device gap kernel) is ROADMAP "
-            "Queue 1 item 4"
-        )
+        < 65536
+    )
+
+
+def _pad_rows(a: np.ndarray, n_pad: int) -> np.ndarray:
+    """``a`` with ``n_pad`` copies of its first row appended."""
+    if not n_pad:
+        return a
+    return np.concatenate([a, np.repeat(a[:1], n_pad, axis=0)], axis=0)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
-
-
-class _DeviceFetch:
-    """Results of one dispatch on their way to the host.  On CUDA the
-    copies into pinned host buffers are queued on the current stream right
-    after the kernel, followed by an event; ``get`` (on a fetch-pool
-    thread) waits on the event.  On the CPU the tensors are the result."""
-
-    def __init__(self, *tensors: torch.Tensor):
-        self.event = None
-        if tensors[0].device.type == "cuda":
-            with torch.cuda.device(tensors[0].device):
-                self.host = []
-                for t in tensors:
-                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    h.copy_(t, non_blocking=True)
-                    self.host.append(h)
-                self.event = torch.cuda.Event()
-                self.event.record()
-        else:
-            self.host = list(tensors)
-
-    def get(self) -> list[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
-        return [h.numpy() for h in self.host]
 
 
 def run_fast(
@@ -450,19 +444,24 @@ def run_fast(
 
     check_covered(cfg)
     bp = batch_engine
-    if max(max(bp.src_dev_ids, default=0), max(bp.dst_dev_ids, default=0)) >= 65536:
-        raise NotImplementedError(
-            "more than 65536 device sequence ids; shard the index with "
-            "--msa-index-chr-shard"
-        )
     nat = get_native()
     device = bp.device
 
-    event_geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
+    # the rewrite geometry: host event geometry (default), the device event
+    # geometry (=device, host event path on overflow) or the gap kernel
+    # over the device gap index (=0)
+    event_geo = dev_event = dev_event_host = None
+    ev_mode = os.environ.get("PANVC3_EVENT_GEOMETRY", "1")
+    if ev_mode == "device":
+        dev_event_host = EventGeometry(src_entries, dst_entries, ref_id_mapping)
+        dev_event = DeviceEventGeometry(dev_event_host, device)
+    elif ev_mode != "0":
+        event_geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
 
     refmap = {name.encode(): i for i, name in enumerate(input_header.ref_names)}
     rim = np.asarray(ref_id_mapping, dtype=np.int32)
     src_dev = np.asarray(bp.src_dev_ids, dtype=np.int32)
+    dst_dev = np.asarray(bp.dst_dev_ids, dtype=np.int32)
     preserved = b"".join(
         sorted(
             t.encode()
@@ -613,12 +612,15 @@ def run_fast(
             _rg_state["idle"] = 0
 
     def start_batch(lines, rec_base, expect_nrec=None):
-        """Parse + stage; returns a context dict (kept == 0 when the whole
-        block was filtered out — the parse counter deltas still ride in
-        it).  The stat deltas are folded in emit()."""
+        """Parse + stage, and launch the device rewrite geometry where one
+        runs; returns a context dict (kept == 0 when the whole block was
+        filtered out — the parse counter deltas still ride in it).  The
+        stat deltas are folded in emit()."""
         t0 = _time.perf_counter() if _PROF else 0.0
+        # the device event kernel packs its gap bits 8 units per byte
         staged = nat.parse_stage_batch(
-            lines, refmap, FLAG_SKIP, primary_mask, 4, 2, 2,
+            lines, refmap, FLAG_SKIP, primary_mask,
+            4, 8 if dev_event is not None else 2, 2,
         )
         if _PROF:
             t0 = _tick("parse_stage", t0)
@@ -652,8 +654,42 @@ def run_fast(
         snap = ref_seqs.require(int(r) for r in np.unique(dst_rids))
         _ingest_refs(snap)
 
+        R = staged["R"]
+        fetch = fut = d_run = None
+        if event_geo is None:
+            # the device geometry, batch dimension bucketed as in
+            # BatchProjector.start_batch (padding rows copy the first)
+            n_pad = max(0, min(batch_size, next_pow2(kept)) - kept)
+            n_units = np.frombuffer(staged["n_ref_units"], np.int32)
+            if dev_event is not None:
+                rows = (
+                    _pad_rows(np.ascontiguousarray(a, dtype=np.int32), n_pad)
+                    for a in (ref_id, fields[:, 2], n_units)
+                )
+                wire, overflow = dev_event.kernel_wire(
+                    *(_to_device(a, device) for a in rows), R
+                )
+            else:
+                # one packed u8 input row per record (10 B)
+                packed_in = pack_gap_wire_input(
+                    np.ascontiguousarray(fields[:, 2]), n_units,
+                    src_dev[ref_id], dst_dev[dst_rids],
+                )
+                # d_run (int32, B x R) stays on the device unless the wire
+                # overflows
+                wire, overflow, d_run = rewrite_gap_kernel_wire(
+                    bp.index, _to_device(_pad_rows(packed_in, n_pad), device), R
+                )
+            fetch = DeviceFetch(wire, overflow)
+            if fetch_pool is not None:
+                fut = fetch_pool.submit(fetch.get)
+            if _PROF:
+                t0 = _tick("rewrite_dispatch", t0)
+
         # host mate projection on the event prefix sums, per distinct mate
-        # reference (project_position)
+        # reference (project_position); without event tables (=0) through
+        # the index entries
+        geo = event_geo if event_geo is not None else dev_event_host
         mate_dst = np.full(kept, -1, dtype=np.int32)
         mrid = fields[:, 4]
         mpos = fields[:, 5]
@@ -661,9 +697,9 @@ def run_fast(
         if mask.any():
             for mr in np.unique(mrid[mask]):
                 sel = mask & (mrid == mr)
-                pe = event_geo.events[int(mr)]
+                pe = geo.events[int(mr)] if geo is not None else None
                 if pe is not None:
-                    sgv = event_geo.src_gv[int(mr)]
+                    sgv = geo.src_gv[int(mr)]
                     u = np.clip(mpos[sel], 0, max(0, sgv.n_zeros - 1))
                     mate_dst[sel] = project_unit(pe, u).astype(np.int32)
                 else:
@@ -682,32 +718,61 @@ def run_fast(
             "rec_base": rec_base,
             "parse_stats": parse_stats,
             "mate_dst": mate_dst,
-            "R": staged["R"],
+            "fetch": fetch,
+            "fut": fut,
+            "d_run": d_run,
+            "R": R,
             "Lq": staged["Lq"],
             "snap": snap,
         }
 
+    def host_event_geometry(ctx, geo):
+        fields = ctx["fields"]
+        dst_pos_a, gapbits, d_vals, d_pos, d_n, use_full, d_full = geo.batch(
+            fields[:, 1],
+            fields[:, 2],
+            np.frombuffer(ctx["staged"]["n_ref_units"], np.int32),
+            ctx["R"],
+            D_SPARSE_SLOTS,
+        )
+        return dst_pos_a, gapbits, d_vals, d_pos, d_n, use_full, np.ascontiguousarray(d_full)
+
+    def device_geometry(ctx):
+        """The geometry of a batch from its device dispatch, or on overflow
+        from the host event path (=device) or the full deletion runs
+        (=0)."""
+        kept = ctx["kept"]
+        fut = ctx["fut"]
+        wire, overflow = fut.result() if fut is not None else ctx["fetch"].get()
+        use_full = 0
+        d_full = np.zeros(0, np.int32)
+        if int(overflow):
+            with _DIAG_LOCK:
+                diag["geometry_overflow"] += 1
+            if dev_event is not None:
+                # event slots or u8 widths ran out (R > 255 included): the
+                # host event path is bit-identical and handles those cases
+                return host_event_geometry(ctx, dev_event_host)
+            use_full = 1
+            d_full = np.ascontiguousarray(ctx["d_run"][:kept].cpu().numpy())
+        dst_pos_a, d_n, gapbits, d_pos, d_vals = unpack_gap_wire(wire[:kept], ctx["R"])
+        return dst_pos_a, gapbits, d_vals, d_pos, d_n, use_full, d_full
+
     def finish_rewrite(ctx):
-        """Event geometry, finalize + detect runs, then the realign lane:
+        """Rewrite geometry, finalize + detect runs, then the realign lane:
         host C DP, deferred to the writer's aggregate dispatch, or a
         per-batch device dispatch."""
         if ctx is None or ctx["kept"] == 0:
             return ctx
         staged = ctx["staged"]
         t0 = _time.perf_counter() if _PROF else 0.0
-        fields = ctx["fields"]
-        dst_pos_a, gapbits, d_vals, d_pos, d_n, use_full, d_full = (
-            event_geo.batch(
-                fields[:, 1],
-                fields[:, 2],
-                np.frombuffer(staged["n_ref_units"], np.int32),
-                ctx["R"],
-                D_SPARSE_SLOTS,
-            )
-        )
-        d_full = np.ascontiguousarray(d_full)
+        if event_geo is not None:
+            geometry = host_event_geometry(ctx, event_geo)
+        else:
+            geometry = device_geometry(ctx)
+        dst_pos_a, gapbits, d_vals, d_pos, d_n, use_full, d_full = geometry
         if _PROF:
-            t0 = _tick("event_geometry", t0)
+            t0 = _tick("event_geometry" if event_geo is not None else "rewrite_fetch", t0)
         snap = ctx["snap"]
         ref_list = [snap.get(rid, b"") for rid in range(len(dst_entries))]
         run_ops_b, run_lens_b, runs_per_rec_b, indel_b = (
@@ -808,7 +873,7 @@ def run_fast(
                     _to_device(pack_realign_wire_input(ref, qry, rl, ql), device),
                     go, ge, Rp, Qp,
                 )
-                rh = _DeviceFetch(wire)
+                rh = DeviceFetch(wire)
                 ctx["rh_wire"] = True
             else:
                 qq = None
@@ -828,7 +893,7 @@ def run_fast(
                     _to_device(rl, device), _to_device(ql, device),
                     kgo, kge, None, qq, use_quality, Rp, Qp,
                 )
-                rh = _DeviceFetch(ops, cnt)
+                rh = DeviceFetch(ops, cnt)
             ctx["rh"] = rh
             if fetch_pool is not None:
                 ctx["rfut"] = fetch_pool.submit(rh.get)
@@ -1163,7 +1228,7 @@ def run_fast(
                     wire = _realign_wire_refgather(
                         _to_device(packed, device), rg_flat, go, ge, Rmax, Qmax
                     )
-                res = _DeviceFetch(wire)
+                res = DeviceFetch(wire)
 
                 def _fetch():
                     w = res.get()[0]
@@ -1179,7 +1244,7 @@ def run_fast(
                     packed = pack_realign_wire_input(ref, qb, rl, ql)
                     wire = _realign_wire(_to_device(packed, device), go, ge, Rmax, Qmax)
                     unpack = unpack_realign_wire
-                res = _DeviceFetch(wire)
+                res = DeviceFetch(wire)
 
                 def _fetch():
                     w = res.get()[0]
@@ -1192,7 +1257,7 @@ def run_fast(
                     None if qq is None else _to_device(qq, device),
                     use_quality, Rmax, Qmax,
                 )
-                res = _DeviceFetch(ops, cnt)
+                res = DeviceFetch(ops, cnt)
 
                 def _fetch():
                     o, c2 = res.get()

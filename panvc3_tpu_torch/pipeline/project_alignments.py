@@ -9,8 +9,10 @@ per-category statistics; each remaining record's CIGAR and position are
 projected, the mate's RNEXT/PNEXT too, and tags are rewritten (a whitelist
 of SAM tags plus ``--preserve-tag`` survives, the original alignment goes
 to OA, original RNAME/POS/RNEXT/PNEXT to XR/XP/YR/YP, realigned ranges to
-XB/YB).  ``engine="device"`` runs the port's fast lane
-(``pipeline/fastlane.run_fast``) on an explicit ``torch.device``;
+XB/YB).  ``engine="device"`` runs on an explicit ``torch.device``: the
+port's fast lane (``pipeline/fastlane.run_fast``) where
+``fastlane_eligible`` allows, else the object path, which projects parsed
+records in batches through ``ops.engine.BatchProjector``;
 ``engine="host"`` runs the scalar host oracle (``projector``) record by
 record.  Configurations the port does not cover raise
 NotImplementedError.
@@ -18,8 +20,14 @@ NotImplementedError.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import queue
 import sys
+import threading
 from dataclasses import dataclass, field
+
+import torch
 
 from .. import resolve_device
 from ..alphabet import decode_phred42
@@ -90,8 +98,8 @@ class ProjectConfig:
     # the single-dispatch fused engines (not ported: raises)
     fused_kernel: bool = False
     # native batch fast lane (pipeline/fastlane.py): raw SAM lines are
-    # parsed/staged/spliced/formatted in C.  The object device path it
-    # replaces is not ported (False raises)
+    # parsed/staged/spliced/formatted in C.  False takes the object path
+    # (parsed records through BatchProjector)
     fastlane: bool = True
 
 
@@ -471,7 +479,7 @@ def run_project_alignments(
 
     if cfg.engine == "device":
         from ..ops.engine import BatchProjector
-        from .fastlane import run_fast
+        from .fastlane import fastlane_eligible, run_fast
 
         batch_engine = BatchProjector(
             src_entries,
@@ -481,11 +489,18 @@ def run_project_alignments(
             cfg.gap_extension_cost,
             device=dev,
         )
-        run_fast(
-            reader, writer, cfg, stats, batch_engine,
-            input_header, out_header, src_entries, dst_entries,
-            ref_id_mapping, ref_seqs, realigned_ranges,
-        )
+        if cfg.fastlane and fastlane_eligible(cfg, batch_engine):
+            run_fast(
+                reader, writer, cfg, stats, batch_engine,
+                input_header, out_header, src_entries, dst_entries,
+                ref_id_mapping, ref_seqs, realigned_ranges,
+            )
+        else:
+            _run_object(
+                reader, writer, cfg, stats, batch_engine, input_header,
+                src_entries, dst_entries, ref_id_mapping, ref_seqs,
+                realigned_ranges,
+            )
         stats.realignment_time_ns += batch_engine.realignment_time_ns
     else:
         _run_host(
@@ -496,6 +511,188 @@ def run_project_alignments(
     if cfg.output_realigned_ranges_path and realigned_ranges is not None:
         _write_realigned_ranges(cfg, realigned_ranges, stats)
     return stats
+
+
+def _valid_records(reader, cfg, stats, input_header, src_entries, reporter):
+    """(record index, record) of each record to project, in input order;
+    the others are counted in ``stats`` (the reference's reader-loop
+    filters, in its order)."""
+    for rec_idx, rec in enumerate(reader):
+        if (1 + rec_idx) % 10_000_000 == 0:
+            log_time(f"Processed {1 + rec_idx} alignments…")
+        reporter.tick(rec_idx)
+        if rec.flag & FLAG_SKIP:
+            stats.flags_not_matched += 1
+            continue
+        if cfg.primary_only and rec.flag & 0x100:
+            stats.flags_not_matched += 1
+            continue
+        if rec.ref_id < 0:
+            stats.ref_id_missing += 1
+            continue
+        if rec.pos < 0:
+            stats.flags_not_matched += 1
+            continue
+        if not rec.seq or rec.seq == "*":
+            stats.seq_missing += 1
+            continue
+        qlen = cigar_query_length(rec.cigar)
+        if rec.cigar and qlen != len(rec.seq):
+            raise ValueError(
+                f"record {rec.qname!r}: CIGAR consumes {qlen} query "
+                f"bases but SEQ has {len(rec.seq)}"
+            )
+        if src_entries[rec.ref_id] is None:
+            raise ValueError(
+                f"record {rec.qname!r} references "
+                f"{input_header.ref_names[rec.ref_id]!r}, which is outside "
+                "this index shard (--msa-index-chr-shard); route the input "
+                "with panvc3_split_alignments_by_reference first"
+            )
+        stats.matched_reads += 1
+        yield rec_idx, rec
+
+
+def _realign_status(stats, batch_engine=None):
+    """The status line's realignment part (the reference's, for the
+    periodic status output)."""
+
+    def status() -> str:
+        n = stats.realigned_range_count
+        msg = f"; realigned {n} ranges"
+        if n:
+            t_ns = stats.realignment_time_ns
+            if batch_engine is not None:
+                t_ns += batch_engine.realignment_time_ns
+            usecs = t_ns / 1000.0 / n
+            mean_len = stats.realigned_range_total_length / n
+            msg += (
+                f" (in {format_duration(t_ns / 1e9)}; "
+                f"{usecs:.2f} µs / realignment, mean length {mean_len:g} characters)"
+            )
+        return msg
+
+    return status
+
+
+def _run_object(
+    reader, writer, cfg, stats, batch_engine, input_header, src_entries,
+    dst_entries, ref_id_mapping, ref_seqs, realigned_ranges,
+) -> None:
+    """The device engine's object path: parsed records in batches through
+    ``batch_engine`` (gap kernel, host finalize, realignment on the
+    device), up to ``cfg.pipeline_depth`` batches in each of its three
+    stages.  With ``cfg.threaded_pipeline`` one worker thread runs the
+    finish stages in FIFO order while the main thread parses.  The
+    record-index tag is granular per CHUNK_SIZE group of valid records."""
+    batch_size = max(CHUNK_SIZE, (cfg.device_batch_size // CHUNK_SIZE) * CHUNK_SIZE)
+    dev = batch_engine.device
+    task_counter = 0
+
+    def apply_batch(batch_records, results):
+        nonlocal task_counter
+        for start in range(0, len(batch_records), CHUNK_SIZE):
+            sub = batch_records[start:start + CHUNK_SIZE]
+            rec_idx_value = sub[-1][0] - len(sub) + 1
+            task_counter += 1
+            for off, (_, rec) in enumerate(sub):
+                apply_projection_result(
+                    rec, results[start + off], input_header.ref_names,
+                    src_entries, dst_entries, ref_id_mapping, cfg, stats,
+                    rec_idx_value, realigned_ranges, task_counter,
+                )
+        for _, rec in batch_records:
+            writer.write(rec)
+
+    def on_device():
+        # threads launch and fetch on the projector's device, whatever
+        # their current device
+        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    # three stages per batch: start_batch (gap kernel launched; in
+    # in_flight), finish_rewrite (host finalize, realignment launched; in
+    # realign_flight), finish_realign (fetch, splice, write)
+    max_in_flight = max(1, cfg.pipeline_depth)
+    in_flight: collections.deque = collections.deque()
+    realign_flight: collections.deque = collections.deque()
+
+    def drain_one():
+        batch_records, handle = in_flight.popleft()
+        realign_flight.append((batch_records, batch_engine.finish_rewrite(handle)))
+        if len(realign_flight) >= max_in_flight:
+            drain_realign_one()
+
+    def drain_realign_one():
+        batch_records, handle2 = realign_flight.popleft()
+        apply_batch(batch_records, batch_engine.finish_realign(handle2))
+
+    worker_error: list[BaseException] = []
+    work_q = None
+    worker = None
+    if cfg.threaded_pipeline:
+        work_q = queue.Queue(maxsize=max_in_flight)
+
+        def worker_loop():
+            try:
+                with on_device():
+                    while True:
+                        item = work_q.get()
+                        if item is None:
+                            while realign_flight:
+                                drain_realign_one()
+                            return
+                        in_flight.append(item)
+                        drain_one()
+            except BaseException as exc:  # noqa: BLE001 — re-raised on main
+                worker_error.append(exc)
+                while work_q.get() is not None:  # unblock the producer
+                    pass
+
+        worker = threading.Thread(target=worker_loop, daemon=True)
+        worker.start()
+
+    chunk: list[tuple[int, SamRecord]] = []
+
+    def flush_chunk():
+        nonlocal chunk
+        if not chunk:
+            return
+        snapshot = ref_seqs.require({ref_id_mapping[r.ref_id] for _, r in chunk})
+        handle = batch_engine.start_batch([r for _, r in chunk], snapshot, cfg)
+        if work_q is not None:
+            if worker_error:
+                raise worker_error[0]
+            work_q.put((chunk, handle))
+        else:
+            in_flight.append((chunk, handle))
+            if len(in_flight) >= max_in_flight:
+                drain_one()
+        chunk = []
+
+    reporter = StatusReporter(cfg.status_output_interval)
+    reporter.extra_cb = _realign_status(stats, batch_engine)
+    try:
+        with on_device():
+            for item in _valid_records(
+                reader, cfg, stats, input_header, src_entries, reporter
+            ):
+                chunk.append(item)
+                if len(chunk) == batch_size:
+                    flush_chunk()
+            flush_chunk()
+    finally:
+        # always join the worker: leaving with it mid-dispatch would tear
+        # the interpreter down under a device call
+        if worker is not None:
+            work_q.put(None)
+            worker.join()
+    if worker_error:
+        raise worker_error[0]
+    with on_device():
+        while in_flight:
+            drain_one()
+        while realign_flight:
+            drain_realign_one()
 
 
 def _run_host(
@@ -533,56 +730,9 @@ def _run_host(
         chunk = []
 
     reporter = StatusReporter(cfg.status_output_interval)
-
-    def _realign_status() -> str:
-        n = stats.realigned_range_count
-        msg = f"; realigned {n} ranges"
-        if n:
-            t_ns = stats.realignment_time_ns
-            usecs = t_ns / 1000.0 / n
-            mean_len = stats.realigned_range_total_length / n
-            msg += (
-                f" (in {format_duration(t_ns / 1e9)}; "
-                f"{usecs:.2f} µs / realignment, mean length {mean_len:g} characters)"
-            )
-        return msg
-
-    reporter.extra_cb = _realign_status
-
-    for rec_idx, rec in enumerate(reader):
-        if (1 + rec_idx) % 10_000_000 == 0:
-            log_time(f"Processed {1 + rec_idx} alignments…")
-        reporter.tick(rec_idx)
-        if rec.flag & FLAG_SKIP:
-            stats.flags_not_matched += 1
-            continue
-        if cfg.primary_only and rec.flag & 0x100:
-            stats.flags_not_matched += 1
-            continue
-        if rec.ref_id < 0:
-            stats.ref_id_missing += 1
-            continue
-        if rec.pos < 0:
-            stats.flags_not_matched += 1
-            continue
-        if not rec.seq or rec.seq == "*":
-            stats.seq_missing += 1
-            continue
-        qlen = cigar_query_length(rec.cigar)
-        if rec.cigar and qlen != len(rec.seq):
-            raise ValueError(
-                f"record {rec.qname!r}: CIGAR consumes {qlen} query "
-                f"bases but SEQ has {len(rec.seq)}"
-            )
-        if src_entries[rec.ref_id] is None:
-            raise ValueError(
-                f"record {rec.qname!r} references "
-                f"{input_header.ref_names[rec.ref_id]!r}, which is outside "
-                "this index shard (--msa-index-chr-shard); route the input "
-                "with panvc3_split_alignments_by_reference first"
-            )
-        stats.matched_reads += 1
-        chunk.append((rec_idx, rec))
+    reporter.extra_cb = _realign_status(stats)
+    for item in _valid_records(reader, cfg, stats, input_header, src_entries, reporter):
+        chunk.append(item)
         if len(chunk) == CHUNK_SIZE:
             flush_chunk()
     flush_chunk()

@@ -235,3 +235,139 @@ def test_slice_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality, env, en
         else:
             assert not any(launched.values()), launched
     assert outs["cuda"] == outs["cpu"]
+
+
+# -- the device gap index, the gap kernel, the device event geometry and the
+# object path: plain PyTorch, the same function on the card as on the CPU
+
+def _gap_rows(rng, n, rate):
+    s = np.where(rng.random(n) < rate, ord("-"), ord("A")).astype(np.uint8)
+    s[0] = ord("A")
+    return s.tobytes()
+
+
+@pytest.mark.parametrize("select,rank", [(None, None), (False, None), (None, False), (False, False)])
+def test_gap_index_queries_on_card_match_cpu(cuda, select, rank):
+    """Every query at positions, ranks and sequence ids past each end (the
+    gathers clamp as XLA's do)."""
+    from panvc3_tpu_torch.bitvec import GapBitVector
+    from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
+
+    rng = np.random.default_rng(7)
+    vectors = [GapBitVector.from_gap_string(_gap_rows(rng, n, 0.3)) for n in (33, 64, 500, 70_000)]
+    idx = {d: DeviceGapIndex.build(vectors, select, rank, device=d) for d in ("cpu", cuda)}
+    assert idx[cuda].words.device.type == "cuda"
+    B = 4096
+    seq = torch.from_numpy(rng.integers(-2, 6, B).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(-40, 70_040, B).astype(np.int32))
+    k = torch.from_numpy(rng.integers(-5, 50_000, B).astype(np.int32))
+    for name, arg in (("rank0", pos), ("bit", pos), ("select0", k)):
+        want = getattr(idx["cpu"], name)(seq, arg)
+        assert torch.equal(getattr(idx[cuda], name)(seq.to(cuda), arg.to(cuda)).cpu(), want), name
+    for g, w in zip(idx[cuda].rank0_and_bit(seq.to(cuda), pos.to(cuda)), idx["cpu"].rank0_and_bit(seq, pos)):
+        assert torch.equal(g.cpu(), w)
+    for R in (128, 5000):
+        want = idx["cpu"].select0_consecutive(seq[:64], k[:64], R)
+        assert torch.equal(idx[cuda].select0_consecutive(seq[:64].to(cuda), k[:64].to(cuda), R).cpu(), want)
+
+
+@pytest.mark.parametrize("cause", ["none", "R>255", "long-deletion", "many-deletions"])
+def test_gap_wire_on_card_matches_cpu(cuda, cause):
+    from panvc3_tpu_torch.bitvec import GapBitVector
+    from panvc3_tpu_torch.ops import rewrite_batch as rb
+    from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
+
+    rng = np.random.default_rng(len(cause))
+    src = np.frombuffer(_gap_rows(rng, 900, 0.02), np.uint8).copy()
+    if cause == "long-deletion":
+        src[300:600] = ord("-")
+    elif cause == "many-deletions":
+        src[200:500:3] = ord("-")
+    dst = _gap_rows(rng, 900, 0.02)
+    vectors = [GapBitVector.from_gap_string(r) for r in (src.tobytes(), dst)]
+    R = 256 if cause == "R>255" else 64
+    B = 8192
+    pos = rng.integers(-3, 520, B).astype(np.int32)
+    pos[:6] = [150, 180, 250, 290, 0, -1]
+    n_units = rng.integers(0, min(R, 255) + 1, B).astype(np.int32)
+    packed = rb.pack_gap_wire_input(pos, n_units, np.zeros(B, np.int32), np.ones(B, np.int32))
+    out = {}
+    for d in ("cpu", cuda):
+        index = DeviceGapIndex.build(vectors, device=d)
+        out[d] = [t.cpu() for t in rb.rewrite_gap_kernel_wire(index, torch.from_numpy(packed).to(d), R)]
+    for g, w in zip(out[cuda], out["cpu"]):
+        assert torch.equal(g, w)
+    assert (int(out["cpu"][1]) > 0) == (cause != "none")
+
+
+@pytest.mark.parametrize("buckets", ["1", "0"])
+def test_device_event_wire_on_card_matches_cpu(cuda, monkeypatch, buckets):
+    from panvc3_tpu_torch.bitvec import GapBitVector
+    from panvc3_tpu_torch.msa_index import SequenceEntry
+    from panvc3_tpu_torch.ops.event_geometry import DeviceEventGeometry, EventGeometry
+
+    monkeypatch.setenv("PANVC3_EVENT_BUCKETS", buckets)
+    rng = np.random.default_rng(11)
+    entries = [
+        SequenceEntry(str(i), GapBitVector.from_gap_string(_gap_rows(rng, 400_000, 0.02)))
+        for i in range(3)
+    ]
+    host = EventGeometry(entries, [entries[0]], [0, 0, 0])
+    B, R = 8192, 128
+    ref_ids = rng.integers(0, 3, B).astype(np.int32)
+    nz = np.asarray([entries[r].gaps.n_zeros for r in ref_ids])
+    pos = rng.integers(-5, nz + 6).astype(np.int32)
+    n_units = rng.integers(0, 101, B).astype(np.int32)
+    out = {}
+    for d in ("cpu", cuda):
+        geo = DeviceEventGeometry(host, d)
+        out[d] = [t.cpu() for t in geo.kernel_wire(*(torch.from_numpy(a).to(d) for a in (ref_ids, pos, n_units)), R)]
+    assert geo.post_tab.device.type == "cuda"
+    for g, w in zip(out[cuda], out["cpu"]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "quality,fastlane,geometry,entry",
+    [
+        (False, False, "1", "realign_fused_int"),
+        (True, False, "1", "realign_fused_qual"),
+        (False, True, "0", "realign_fused_int"),
+        (False, True, "device", "realign_fused_int"),
+    ],
+    ids=["object-int", "object-q", "fastlane-gap-kernel", "fastlane-device-events"],
+)
+def test_device_geometry_paths_on_card_match_cpu(cuda, tmp_path, monkeypatch, quality, fastlane, geometry, entry):
+    """The object path (a batch through BatchProjector: the gap kernel, the
+    host finalize, K1) and the fast lane's two device geometry routes,
+    card vs CPU."""
+    from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.pipeline.project_alignments import (
+        ProjectConfig,
+        run_project_alignments,
+    )
+
+    rows = synth.make_msa(300_000, seed=5)
+    index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
+    sam = synth.reads_sam("c1", founders, 3000, seed=6, qualities=quality)
+    monkeypatch.setenv("PANVC3_HOST_DP", "0")
+    monkeypatch.setenv("PANVC3_EVENT_GEOMETRY", geometry)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = ProjectConfig(
+            msa_index_path=str(index_path), reference_path=str(fasta_path),
+            reference_msa_id="REF", ref_id_separator="/", engine="device",
+            device_batch_size=1024, status_output_interval=0,
+            use_read_base_qualities=quality, fastlane=fastlane,
+        )
+        before = dict(_kernels.LAUNCHES)
+        out = io.BytesIO()
+        run_project_alignments(io.BytesIO(sam), out, cfg, device=dev)
+        outs[dev] = out.getvalue()
+        launched = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()}
+        if dev == "cuda":
+            assert {k for k, v in launched.items() if v} == {entry}, launched
+        else:
+            assert not any(launched.values()), launched
+    assert outs["cuda"] == outs["cpu"]

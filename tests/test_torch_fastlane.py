@@ -268,10 +268,8 @@ def test_fastlane_long_runs_match_jax(msa_files, founder_seqs, tmp_path, monkeyp
         ({"data_parallel": 2}, {}),
         ({"fused_kernel": True}, {}),
         ({"output_bam": True}, {}),
-        ({}, {"PANVC3_EVENT_GEOMETRY": "device"}),
-        ({}, {"PANVC3_EVENT_GEOMETRY": "0"}),
     ],
-    ids=["data-parallel", "fused-kernel", "bam-out", "event-device", "gap-kernel"],
+    ids=["data-parallel", "fused-kernel", "bam-out"],
 )
 def test_uncovered_configurations_raise(rich_case, tmp_path, monkeypatch, kw, env):
     index_path, sam, _ = rich_case

@@ -17,9 +17,10 @@ PORT = REPO / "panvc3_tpu_torch"
 
 # imports every module of the port, runs a small slice of the pipeline
 # (the CLI on a tiny MSA built with the port's own index, with integer and
-# with quality scoring), then lists any JAX or panvc3_tpu module loaded
+# with quality scoring and through the gap kernel, then the object path),
+# then lists any JAX or panvc3_tpu module loaded
 _SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import numpy as np
 import panvc3_tpu_torch
 for mod in pkgutil.walk_packages(panvc3_tpu_torch.__path__, "panvc3_tpu_torch."):
@@ -52,13 +53,22 @@ for i in range(40):
     seq = founder[pos:pos + 20] + b"ACG" + founder[pos + 22:pos + 52]
     lines.append(f"r{i}\t0\tc/F\t{pos + 1}\t60\t20=3I2D30=\t*\t0\t0\t{seq.decode()}\t" + "I" * len(seq))
 open(f"{work}/in.sam", "w").write("\n".join(lines) + "\n")
-for extra in ([], ["-q"]):
+for extra, geometry in (([], "1"), (["-q"], "1"), ([], "0")):
+    os.environ["PANVC3_EVENT_GEOMETRY"] = geometry
     rc = main(["project_alignments", "--device", "cpu", "-a", f"{work}/in.sam",
                "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa", "-d", "REF",
                "-s", "/", "-o", f"{work}/out.sam", "--status-output-interval", "0",
                *extra])
     assert rc == 0
     assert sum(1 for ln in open(f"{work}/out.sam") if not ln.startswith("@")) == 40
+del os.environ["PANVC3_EVENT_GEOMETRY"]
+# the object path
+from panvc3_tpu_torch.pipeline.project_alignments import ProjectConfig, run_project_alignments
+cfg = ProjectConfig(msa_index_path=f"{work}/msa.npz", reference_path=f"{work}/ref.fa",
+                    reference_msa_id="REF", ref_id_separator="/", engine="device",
+                    fastlane=False, status_output_interval=0)
+stats = run_project_alignments(f"{work}/in.sam", f"{work}/obj.sam", cfg, device="cpu")
+assert stats.matched_reads == 40 and stats.realigned_range_count > 0
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
 ref_pkg = sorted(m for m in sys.modules if m == "panvc3_tpu" or m.startswith("panvc3_tpu."))

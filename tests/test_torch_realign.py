@@ -295,5 +295,18 @@ def test_batch_projector_state_matches_jax():
     assert offmap == jp._ref_off
     fresh = BatchProjector.from_numpy_state(jax_state, "cpu")
     assert fresh.ref_flat_snapshot(max_h2d_bytes=4) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.index
+    # the device gap index, array by array, and carried across in the state
+    jax_index = {k: np.asarray(v) for k, v in zip(
+        ("words", "brank", "seq_word_off", "seq_brank_off", "seq_nwords", "seq_nzeros",
+         "zsel", "seq_zsel_off", "rtab", "seq_rtab_off"),
+        jp.index.tree_flatten()[0],
+    )}
+    jax_index["search_steps"] = jp.index.search_steps
+    fresh = BatchProjector.from_numpy_state({**jax_state, "index": jax_index}, "cpu")
+    for index in (tp.index, fresh.index):
+        assert index.device.type == "cpu"
+        got = index.numpy_state()
+        assert got.keys() == jax_index.keys()
+        for key, val in jax_index.items():
+            assert np.array_equal(got[key], val) and np.asarray(got[key]).dtype == np.asarray(val).dtype, key
+    assert tp.index is tp.index
