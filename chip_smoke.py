@@ -51,11 +51,27 @@ Phases, in order; any failure raises and exits non-zero:
    many batches overflowed to the host event path), (c) the object path
    (ProjectConfig(fastlane=False), parsed records through BatchProjector)
    and (d) the object path under -q, both in-process through
-   run_project_alignments.  The SAMs of (a)-(c) must equal phase 4's
-   device-lane SAM and that of (d) phase 5's; (c) and (d) must launch K1's
-   integer and quality entries.
+   run_project_alignments on the first 65,536 reads.  The SAMs of (a) and
+   (b) must equal phase 4's device-lane SAM, that of (c) its first 65,536
+   records and that of (d) those of phase 5's; (c) and (d) must launch
+   K1's integer and quality entries;
+8. the nine tools, all through panvc3_tpu_torch.cli.main.main on the same
+   MSA: (a) index_msa --build-index from the rows as the tool reads them
+   (its index must equal the one of phase 4 array by array) and
+   --list-contents; (b) project_alignments -B -b on the device lane, BAM in
+   and BAM out, integer and -q (the records read back must equal the SAMs
+   of phases 4 and 5, and K1 must launch), and one object-path BAM row on
+   8,192 reads (the Python BAM encoder); (c) recalculate_mapq on 65,536
+   read pairs aligned to all four founders and projected by (b)'s route,
+   with --jobs 1 and --jobs 4 (which must spawn: a CUDA context is live),
+   and with PANVC3_MAPQ_FAST=0 on a 1/16 sample, all equal, nothing
+   allocated or launched on the card; (d) split_alignments_by_reference,
+   subset_alignments, rewrite_cigar, alignment_statistics,
+   count_supporting_reads and convert_bed_positions on the projected
+   output, each with its switch on and, on a sample, =0, and SAM against
+   BAM where the tool writes alignments.  Any inequality raises.
 
-Launch counts are set to 0 just before each path of phases 4-7 and read
+Launch counts are set to 0 just before each path of phases 4-8 and read
 just after it.  The kernels' JSON summary and the card's name and power
 limit come before the last line, which is {"ok": true, "device": {...}}.
 Every timing is printed beside the card's name and power limit.
@@ -81,6 +97,17 @@ K1_REPLACES = "panvc3_tpu/ops/realign_pallas_fused.py:69"
 K2_REPLACES = "panvc3_tpu/ops/realign_pallas.py:37"
 CHR21_COLUMNS = 46_709_983
 N_READS = 262_144
+N_OBJECT_READS = 65_536  # the object path's rows (phase 7 c, d)
+N_BAM_OBJECT_READS = 8_192  # the object path's BAM row (phase 8 b)
+N_PAIRS = 65_536  # read pairs, each aligned to four founders (phase 8 c)
+N_SAMPLE = 16_384  # records on which a tool's Python path runs (phase 8 d)
+N_COVERAGE = 2_048  # records of the coverage sweep, a line per covered position
+N_VARIANTS = 46_000
+N_BED = 50_000
+TOOL_SWITCHES = (
+    "PANVC3_MAPQ_FAST", "PANVC3_SUBSET_FAST", "PANVC3_SPLIT_FAST", "PANVC3_REWRITE_TOOL_FAST",
+    "PANVC3_ALS_FAST", "PANVC3_CSR_FAST", "PANVC3_CSR_VCF_FAST",
+)
 MALDE_SCALE = 256.0  # panvc3_tpu_torch.align.MALDE_SCALE
 OPS = {7: "=", 8: "X", 1: "I", 2: "D"}
 # the H100 SXM's published rates: FP32 outside the tensor cores (an FMA
@@ -459,16 +486,22 @@ class Tool:
         "PANVC3_EVENT_GEOMETRY",
     )
 
-    def __init__(self, card: str, work: pathlib.Path, index_path, fasta_path):
+    def __init__(self, card: str, work: pathlib.Path, index_path, fasta_path,
+                 device: str = "cuda"):
         self.card, self.work = card, work
         self.index_path, self.fasta_path = index_path, fasta_path
+        # "cpu" only where a test rehearses the tool phases without a card
+        self.device = device
 
     def run(self, tag: str, env: dict, sam: pathlib.Path, quality: bool = False,
-            fastlane: bool = True):
-        """(SAM bytes, wall seconds, launches by entry, aggregate diag) of
+            fastlane: bool = True, expect: int | None = N_READS, bam: bool = False):
+        """(output, wall seconds, launches by entry, aggregate diag) of
         one call, which also prints its reads/s and peak device memory; the
         counts start at 0 here.  ``fastlane=False`` runs the object path
-        through ``run_project_alignments`` with the CLI's settings."""
+        through ``run_project_alignments`` with the CLI's settings.
+        ``expect`` is the number of records it must write.  With ``bam``
+        the input is read as BAM (-B) and BAM is written (-b): the output
+        returned is then the file's records as SAM text lines."""
         import torch
 
         from panvc3_tpu_torch.cli.main import main as cli_main
@@ -482,40 +515,49 @@ class Tool:
         for key in self.ENV_KEYS:
             os.environ.pop(key, None)
         os.environ.update(env)
-        out_path = self.work / f"{tag}.sam"
+        out_path = self.work / (f"{tag}.bam" if bam else f"{tag}.sam")
         argv = [
-            "project_alignments", "--device", "cuda",
+            "project_alignments", "--device", self.device,
             "-a", str(sam), "-m", str(self.index_path), "-r", str(self.fasta_path),
             "-d", "REF", "-s", "/", "--msa-index-chr-shard", "0/1",
             "-o", str(out_path), "--status-output-interval", "0",
-        ] + (["-q"] if quality else [])
+        ] + (["-q"] if quality else []) + (["-B", "-b"] if bam else [])
         cfg = ProjectConfig(
             msa_index_path=str(self.index_path), reference_path=str(self.fasta_path),
             reference_msa_id="REF", ref_id_separator="/", chr_shard=(0, 1),
             status_output_interval=0, engine="device", fastlane=False,
-            use_read_base_qualities=quality,
+            use_read_base_qualities=quality, output_bam=bam,
         )
+        on_card = self.device == "cuda"
         _kernels.reset_launches()
         for key in fl.AGG_DIAG:
             fl.AGG_DIAG[key] = 0
-        torch.cuda.reset_peak_memory_stats()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         if fastlane:
             rc = cli_main(argv)
         else:
-            run_project_alignments(str(sam), str(out_path), cfg, device="cuda")
+            run_project_alignments(str(sam), str(out_path), cfg, device=self.device)
             rc = 0
-        torch.cuda.synchronize()
+        if on_card:
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = dict(_kernels.LAUNCHES)
         diag = dict(fl.AGG_DIAG)
-        peak = torch.cuda.max_memory_allocated() / 2**20
+        peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
         if rc != 0:
             raise RuntimeError(f"project_alignments ({tag}) exited {rc}")
-        sam_out = out_path.read_bytes()
-        n_out = len(records(sam_out))
-        if n_out != N_READS and sam.name != "one_read.sam":
-            raise AssertionError(f"{tag} wrote {n_out} records, expected {N_READS}")
+        if bam:
+            size = out_path.stat().st_size
+            sam_out = bam_text(out_path)
+            n_out = sam_out.count(b"\n")
+            log(f"[tools] {tag}: BAM in {sam.stat().st_size} bytes, BAM out {size} bytes")
+        else:
+            sam_out = out_path.read_bytes()
+            n_out = len(records(sam_out))
+        if expect is not None and n_out != expect:
+            raise AssertionError(f"{tag} wrote {n_out} records, expected {expect}")
         log(
             f"[slice] {tag}: {n_out / wall:.0f} reads/s ({wall:.2f} s, whole "
             f"tool call incl. index/FASTA load); peak device memory {peak:.1f} MiB; "
@@ -531,6 +573,7 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     t0 = time.perf_counter()
     rows = synth.make_msa(CHR21_COLUMNS, seed)
     index_path, fasta_path, founders = synth.write_inputs(work, "chr21", rows)
+    rows_tsv = write_msa_rows(work, "chr21", rows)
     del rows
     sam_path = work / "reads.sam"
     sam_path.write_bytes(synth.reads_sam("chr21", founders, N_READS, seed + 1))
@@ -538,7 +581,6 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     q_sam_path.write_bytes(synth.reads_sam("chr21", founders, N_READS, seed + 1, qualities=True))
     one_read = work / "one_read.sam"
     one_read.write_bytes(synth.reads_sam("chr21", founders, 1, seed + 1))
-    del founders
     log(
         f"[slice] inputs: {CHR21_COLUMNS} MSA columns x {len(synth.SEQ_IDS)} rows, "
         f"{N_READS} reads of 100 bp, with and without seeded phreds 2..41 "
@@ -553,7 +595,7 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     tool.run("cold", device, sam_path)
     # setup probe: one read (no realignment); its wall time is the tool's
     # fixed cost per call (index load, event tables, FASTA parse, upload)
-    tool.run("setup", device, one_read)
+    tool.run("setup", device, one_read, expect=1)
 
     # phase 4: integer scoring
     dev_sam, _, launches, diag = tool.run("int-device", device, sam_path)
@@ -588,6 +630,7 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
         "from the integer run's"
     )
     phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used)
+    phase_tools(tool, seed, rows_tsv, founders, sam_path, q_sam_path, dev_sam, q_dev, used)
     return used
 
 
@@ -649,28 +692,434 @@ def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used) -> None:
     if launches["realign_fused_int"] <= 0:
         raise AssertionError("the device-event row did not launch K1")
 
-    # (c), (d) the object path
-    obj_sam, _, launches, _ = tool.run("int-object", device, sam_path, fastlane=False)
+    # (c), (d) the object path, on the first N_OBJECT_READS reads
+    head = head_sam(sam_path, tool.work / "reads_head.sam", N_OBJECT_READS)
+    q_head = head_sam(q_sam_path, tool.work / "reads_q_head.sam", N_OBJECT_READS)
+    obj_sam, _, launches, _ = tool.run(
+        "int-object", device, head, fastlane=False, expect=N_OBJECT_READS
+    )
     used["realign_fused_int"] += launches["realign_fused_int"]
     if launches["realign_fused_int"] <= 0:
         raise AssertionError("the object path did not launch K1's integer entry")
     q_obj, _, launches, _ = tool.run(
-        "q-object", device, q_sam_path, quality=True, fastlane=False
+        "q-object", device, q_head, quality=True, fastlane=False, expect=N_OBJECT_READS
     )
     used["realign_fused_qual"] += launches["realign_fused_qual"]
     if launches["realign_fused_qual"] <= 0:
         raise AssertionError("the -q object path did not launch K1's quality entry")
 
     want = strip_pg(dev_sam)
-    for tag, got in (("gap kernel", gap_sam), ("device events", ev_sam), ("object path", obj_sam)):
+    for tag, got in (("gap kernel", gap_sam), ("device events", ev_sam)):
         if strip_pg(got) != want:
             raise AssertionError(f"{tag}: SAM differs from the device lane's")
-    if strip_pg(q_obj) != strip_pg(q_dev):
+    if strip_pg(obj_sam) != head_of(strip_pg(dev_sam), N_OBJECT_READS):
+        raise AssertionError("object path: SAM differs from the device lane's")
+    if strip_pg(q_obj) != head_of(strip_pg(q_dev), N_OBJECT_READS):
         raise AssertionError("-q object path: SAM differs from the -q device lane's")
     log(
-        f"[geometry] gap kernel, device events and object path SAMs == "
-        f"integer device-lane SAM; -q object path SAM == -q device-lane SAM "
-        f"({N_READS} records, @PG stripped)"
+        f"[geometry] gap kernel and device events SAMs == integer device-lane "
+        f"SAM ({N_READS} records, @PG stripped); object path SAM == its first "
+        f"{N_OBJECT_READS} records, -q object path SAM == those of the -q device lane"
+    )
+
+
+def head_of(sam: bytes, n: int) -> bytes:
+    """The header and the first ``n`` records of SAM text."""
+    lines = sam.split(b"\n")
+    k = next(i for i, ln in enumerate(lines) if ln and not ln.startswith(b"@"))
+    return b"\n".join(lines[:k + n]) + b"\n"
+
+
+def head_sam(src: pathlib.Path, dst: pathlib.Path, n: int) -> pathlib.Path:
+    dst.write_bytes(head_of(src.read_bytes(), n))
+    return dst
+
+
+def body(sam: bytes) -> bytes:
+    """The record lines of SAM text."""
+    return b"".join(ln + b"\n" for ln in sam.split(b"\n") if ln and not ln.startswith(b"@"))
+
+
+def bam_text(path) -> bytes:
+    """A BAM file's records as SAM text lines (tags in the file's order)."""
+    from panvc3_tpu_torch.io.sam import SamReader
+
+    reader = SamReader(str(path))
+    if not reader.is_bam:
+        raise AssertionError(f"{path} is not BAM")
+    text = b"".join(ln for block in reader.raw_record_line_blocks() for ln in block)
+    reader.close()
+    return text
+
+
+def sam_to_bam(src: pathlib.Path, dst: pathlib.Path) -> pathlib.Path:
+    """Convert SAM text to BAM with the port's SamWriter (the C encoder)."""
+    from panvc3_tpu_torch.io.sam import SamReader, SamWriter
+
+    reader = SamReader(str(src))
+    writer = SamWriter(str(dst), reader.header, bam=True)
+    for block in reader.raw_record_line_blocks():
+        writer.write_raw(b"".join(block))
+    writer.close()
+    reader.close()
+    return dst
+
+
+def canonical(sam_or_path) -> list[str]:
+    """Every record of a SAM or BAM file, parsed and printed again (tags
+    sorted): what two files hold when their bytes may differ in tag order."""
+    from panvc3_tpu_torch.io.sam import SamReader, format_sam_record
+
+    reader = SamReader(str(sam_or_path))
+    out = [format_sam_record(rec, reader.header) for rec in reader]
+    reader.close()
+    return out
+
+
+def write_msa_rows(work: pathlib.Path, chr_id: str, rows: dict) -> pathlib.Path:
+    """The MSA as index_msa reads it: one aligned row per file, and the
+    TSV that lists them (chromosome, sequence id, path)."""
+    lines = []
+    for sid, row in rows.items():
+        path = work / f"row_{sid}.txt"
+        path.write_bytes(row + b"\n")
+        lines.append(f"{chr_id}\t{sid}\t{path}")
+    tsv = work / "rows.tsv"
+    tsv.write_text("\n".join(lines) + "\n")
+    return tsv
+
+
+def run_cli(argv: list, env: dict | None = None, stdin: pathlib.Path | None = None):
+    """One tool through the port's CLI: (standard output, seconds).  The
+    tools' switches are cleared, then ``env`` is set.  Output is caught at
+    the descriptor, where the tools' print calls end up."""
+    from panvc3_tpu_torch.cli.main import main as cli_main
+
+    for key in TOOL_SWITCHES:
+        os.environ.pop(key, None)
+    os.environ.update(env or {})
+    sys.stdout.flush()
+    keep_out, keep_in = os.dup(1), os.dup(0)
+    with tempfile.TemporaryFile() as tmp:
+        fd_in = os.open(str(stdin) if stdin else os.devnull, os.O_RDONLY)
+        os.dup2(tmp.fileno(), 1)
+        os.dup2(fd_in, 0)
+        t0 = time.perf_counter()
+        try:
+            rc = cli_main([str(a) for a in argv])
+            sys.stdout.flush()
+        finally:
+            wall = time.perf_counter() - t0
+            os.dup2(keep_out, 1)
+            os.dup2(keep_in, 0)
+            for fd in (keep_out, keep_in, fd_in):
+                os.close(fd)
+        tmp.seek(0)
+        out = tmp.read()
+    for key in TOOL_SWITCHES:
+        os.environ.pop(key, None)
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]} exited {rc}: {' '.join(map(str, argv))}")
+    return out, wall
+
+
+def position_sorted(src: pathlib.Path, dst: pathlib.Path) -> pathlib.Path:
+    """SAM text sorted by POS (one reference), as count_supporting_reads
+    and the coverage sweep take it."""
+    import numpy as np
+
+    lines = src.read_bytes().split(b"\n")
+    header = [ln for ln in lines if ln.startswith(b"@")]
+    recs = [ln for ln in lines if ln and not ln.startswith(b"@")]
+    order = np.argsort(np.array([int(ln.split(b"\t", 4)[3]) for ln in recs]), kind="stable")
+    dst.write_bytes(b"\n".join(header + [recs[i] for i in order.tolist()]) + b"\n")
+    return dst
+
+
+def phase_tools(tool, seed, rows_tsv, founders, sam_path, q_sam_path, dev_sam, q_dev, used,
+                n_pairs: int = N_PAIRS) -> None:
+    """Phase 8: the nine tools through the port's CLI on the chr21-scale
+    inputs.  K1's launches on the BAM rows join ``used``."""
+    import multiprocessing
+    import numpy as np
+    import torch
+
+    from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.pipeline import recalculate_mapq as rm
+
+    work, card = tool.work, tool.card
+    on_card = tool.device == "cuda"
+    device = {"PANVC3_HOST_DP": "0"}
+    n_reads = len(records(dev_sam))
+
+    # (a) index_msa
+    built = work / "built-index.npz"
+    _, secs = run_cli(["index_msa", "--build-index", "-i", rows_tsv, "-m", built])
+    with np.load(tool.index_path) as want, np.load(built) as got:
+        if sorted(want.files) != sorted(got.files):
+            raise AssertionError("index_msa: the built index holds other arrays")
+        for key in want.files:
+            if not np.array_equal(want[key], got[key]):
+                raise AssertionError(f"index_msa: array {key} differs from the phase 4 index")
+        n_arrays = len(want.files)
+    listing, _ = run_cli(["index_msa", "--list-contents", "-d", built])
+    for sid in synth.SEQ_IDS:
+        if f"\t{sid}\t".encode() not in listing:
+            raise AssertionError(f"index_msa --list-contents does not name {sid}")
+    log(
+        f"[tools] index_msa --build-index: {secs:.2f} s for {len(synth.SEQ_IDS)} rows; "
+        f"{n_arrays} arrays == the phase 4 index; --list-contents names all rows ({card})"
+    )
+
+    # (b) BAM in, BAM out on the device lane, integer and -q; the object
+    # path's BAM row through the Python encoder
+    bam_in = sam_to_bam(sam_path, work / "reads.bam")
+    q_bam_in = sam_to_bam(q_sam_path, work / "reads_q.bam")
+    got, _, launches, _ = tool.run("bam-int-device", device, bam_in, expect=n_reads, bam=True)
+    if on_card and launches["realign_fused_int"] <= 0:
+        raise AssertionError("the BAM run did not launch K1's integer entry")
+    used["realign_fused_int"] += launches["realign_fused_int"]
+    if got != body(dev_sam):
+        raise AssertionError("BAM in/out: records differ from the device-lane SAM")
+    got, _, launches, _ = tool.run(
+        "bam-q-device", device, q_bam_in, quality=True, expect=n_reads, bam=True
+    )
+    if on_card and launches["realign_fused_qual"] <= 0:
+        raise AssertionError("the -q BAM run did not launch K1's quality entry")
+    used["realign_fused_qual"] += launches["realign_fused_qual"]
+    if got != body(q_dev):
+        raise AssertionError("-q BAM in/out: records differ from the -q device-lane SAM")
+    n_obj = min(N_BAM_OBJECT_READS, n_reads)
+    obj_in = sam_to_bam(head_sam(sam_path, work / "reads_obj.sam", n_obj), work / "reads_obj.bam")
+    got, _, launches, _ = tool.run(
+        "bam-int-object", device, obj_in, fastlane=False, expect=n_obj, bam=True
+    )
+    if on_card and launches["realign_fused_int"] <= 0:
+        raise AssertionError("the object path's BAM run did not launch K1's integer entry")
+    used["realign_fused_int"] += launches["realign_fused_int"]
+    if got != body(head_of(dev_sam, n_obj)):
+        raise AssertionError("object path BAM: records differ from the device-lane SAM")
+    log(
+        f"[tools] project_alignments -B -b: device lane integer and -q == the SAM runs "
+        f"({n_reads} records); object path (Python BAM encoder) == its first {n_obj}"
+    )
+
+    # (c) recalculate_mapq on pairs aligned to every founder, projected
+    pairs = work / "pairs.sam"
+    pairs.write_bytes(synth.pairs_sam("chr21", founders, n_pairs, seed + 2))
+    n_rec = n_pairs * 2 * (len(synth.SEQ_IDS) - 1)
+    pairs_bam = sam_to_bam(pairs, work / "pairs.bam")
+    projected_text, _, launches, _ = tool.run(
+        "pairs-project", device, pairs_bam, expect=n_rec, bam=True
+    )
+    projected_bam = work / "pairs-project.bam"
+    header = canonical_header(projected_bam)
+    projected = work / "pairs-projected.sam"
+    projected.write_bytes(header + projected_text)
+    sample = head_sam(projected, work / "pairs-sample.sam", n_rec // 16)
+    if on_card:
+        torch.zeros(1, device="cuda")
+        if not torch.cuda.is_initialized():
+            raise AssertionError("no CUDA context before recalculate_mapq")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    methods = []
+    get_context = multiprocessing.get_context
+
+    def recording_get_context(method=None):
+        methods.append(method)
+        return get_context(method)
+
+    mapq = ["recalculate_mapq", "--status-output-interval", "0"]
+    outs = {}
+    multiprocessing.get_context = recording_get_context
+    try:
+        for jobs in (1, 4):
+            out = work / f"mapq-jobs{jobs}.bam"
+            _, secs = run_cli(mapq + ["-a", projected_bam, "-B", "-b", "-o", out, "--jobs", jobs])
+            outs[jobs] = bam_text(out)
+            log(
+                f"[tools] recalculate_mapq --jobs {jobs}: {n_rec / secs:.0f} records/s "
+                f"({secs:.2f} s, {n_rec} records, BAM in and out) ({card})"
+            )
+    finally:
+        multiprocessing.get_context = get_context
+    want_method = "spawn" if on_card else rm.mp_start_method()
+    if methods != [want_method]:
+        raise AssertionError(f"recalculate_mapq --jobs 4 started its pool by {methods}, not {want_method}")
+    if outs[1] != outs[4] or outs[1].count(b"\n") == 0:
+        raise AssertionError("recalculate_mapq: --jobs 4 differs from --jobs 1")
+    sam_out = work / "mapq-jobs1.sam"
+    run_cli(mapq + ["-a", projected, "-o", sam_out])
+    if canonical(sam_out) != canonical(work / "mapq-jobs1.bam"):
+        raise AssertionError("recalculate_mapq: SAM output differs from BAM output")
+    fast_out, slow_out = work / "mapq-sample-fast.sam", work / "mapq-sample-slow.sam"
+    run_cli(mapq + ["-a", sample, "-o", fast_out])
+    _, secs = run_cli(mapq + ["-a", sample, "-o", slow_out], {"PANVC3_MAPQ_FAST": "0"})
+    if strip_pg(fast_out.read_bytes()) != strip_pg(slow_out.read_bytes()):
+        raise AssertionError("recalculate_mapq: PANVC3_MAPQ_FAST=0 differs from the C engine")
+    if any(_kernels.LAUNCHES.values()):
+        raise AssertionError(f"recalculate_mapq launched kernels: {_kernels.LAUNCHES}")
+    if on_card and (
+        torch.cuda.memory_allocated() != allocated or torch.cuda.max_memory_allocated() != allocated
+    ):
+        raise AssertionError("recalculate_mapq allocated memory on the card")
+    log(
+        f"[tools] recalculate_mapq: --jobs 4 ({want_method}) == --jobs 1 == SAM output; "
+        f"PANVC3_MAPQ_FAST=0 == C engine on {n_rec // 16} records "
+        f"({n_rec // 16 / secs:.0f} records/s); nothing allocated or launched on the card"
+    )
+
+    # (d) the six auxiliary tools on the projected output
+    phase_aux_tools(tool, seed, founders, work / "bam-int-device.bam", dev_sam, sam_out)
+
+
+def canonical_header(bam_path) -> bytes:
+    from panvc3_tpu_torch.io.sam import SamReader
+
+    reader = SamReader(str(bam_path))
+    text = reader.header.to_text().encode()
+    reader.close()
+    return text
+
+
+def phase_aux_tools(tool, seed, founders, projected_bam, dev_sam, mapq_sam) -> None:
+    """Phase 8 (d).  ``projected_bam`` is (b)'s integer output, ``dev_sam``
+    the same records as SAM text, ``mapq_sam`` (c)'s QNAME-grouped output."""
+    from panvc3_tpu_torch import synth
+
+    work, card = tool.work, tool.card
+    n_reads = len(records(dev_sam))
+    n_sample = min(N_SAMPLE, n_reads)
+    projected = work / "projected.sam"
+    projected.write_bytes(dev_sam)
+    sample = head_sam(projected, work / "projected-sample.sam", n_sample)
+    sorted_sam = position_sorted(projected, work / "projected-sorted.sam")
+    sorted_sample = position_sorted(sample, work / "projected-sorted-sample.sam")
+    n_cov = min(N_COVERAGE, n_sample)
+    coverage_sample = head_sam(sorted_sample, work / "projected-coverage-sample.sam", n_cov)
+
+    def rate(name, n, secs, what=""):
+        log(f"[tools] {name}: {n / secs:.0f} records/s ({secs:.2f} s, {n} records{what}) ({card})")
+
+    def same_files(a: pathlib.Path, b: pathlib.Path, what: str) -> None:
+        if strip_pg(a.read_bytes()) != strip_pg(b.read_bytes()):
+            raise AssertionError(f"{what}: outputs differ")
+
+    # split_alignments_by_reference: one reference, so one file holds all
+    names = work / "split-names.txt"
+    names.write_text("chr21\n")
+    split = ["split_alignments_by_reference", "--split-alignments", "-r", names]
+    for tag in ("bam", "sam", "fast", "slow"):
+        (work / f"split-{tag}").mkdir()
+    _, secs = run_cli(split + ["-a", projected_bam, "-B", "-b", f"{work}/split-bam/"])
+    rate("split_alignments_by_reference", n_reads, secs, ", BAM in")
+    run_cli(split + ["-a", projected, "-b", f"{work}/split-sam/"])
+    run_cli(split + ["-a", sample, "-b", f"{work}/split-fast/"])
+    _, secs = run_cli(split + ["-a", sample, "-b", f"{work}/split-slow/"], {"PANVC3_SPLIT_FAST": "0"})
+    rate("split_alignments_by_reference PANVC3_SPLIT_FAST=0", n_sample, secs)
+    if bam_text(work / "split-bam/chr21.bam") != body(dev_sam):
+        raise AssertionError("split_alignments_by_reference: the one file does not hold every record")
+    if bam_text(work / "split-sam/chr21.bam") != body(dev_sam):
+        raise AssertionError("split_alignments_by_reference: SAM input differs from BAM input")
+    if canonical(work / "split-fast/chr21.bam") != canonical(work / "split-slow/chr21.bam"):
+        raise AssertionError("split_alignments_by_reference: PANVC3_SPLIT_FAST=0 differs")
+
+    # subset_alignments: the best-MAPQ placement of each pair
+    n_mapq = len(records(mapq_sam.read_bytes()))
+    mapq_sample = head_sam(mapq_sam, work / "mapq-sample.sam", min(N_SAMPLE, n_mapq))
+    subset = ["subset_alignments", "--chr", "chr21", "--best-mapq"]
+    _, secs = run_cli(subset + ["-a", mapq_sam, "-o", work / "subset.sam"])
+    rate("subset_alignments --best-mapq", n_mapq, secs)
+    run_cli(subset + ["-a", mapq_sam, "-b", "-o", work / "subset.bam"])
+    if canonical(work / "subset.sam") != canonical(work / "subset.bam"):
+        raise AssertionError("subset_alignments: BAM output differs from SAM output")
+    if not 0 < len(records((work / "subset.sam").read_bytes())) < n_mapq:
+        raise AssertionError("subset_alignments --best-mapq kept none or all of the records")
+    run_cli(subset + ["-a", mapq_sample, "-o", work / "subset-fast.sam"])
+    _, secs = run_cli(subset + ["-a", mapq_sample, "-o", work / "subset-slow.sam"], {"PANVC3_SUBSET_FAST": "0"})
+    rate("subset_alignments PANVC3_SUBSET_FAST=0", min(N_SAMPLE, n_mapq), secs)
+    same_files(work / "subset-fast.sam", work / "subset-slow.sam", "subset_alignments PANVC3_SUBSET_FAST=0")
+
+    # rewrite_cigar: =/X to M, then M back to =/X against the reference
+    rewrite = ["rewrite_cigar", "--status-output-interval", "0"]
+    _, secs = run_cli(rewrite + ["-M", "-a", projected, "-o", work / "rewrite-m.sam"])
+    rate("rewrite_cigar -M", n_reads, secs)
+    _, secs = run_cli(rewrite + ["-S", "-r", tool.fasta_path, "-a", work / "rewrite-m.sam", "-o", work / "rewrite-s.sam"])
+    rate("rewrite_cigar -S", n_reads, secs)
+    run_cli(rewrite + ["-S", "-r", tool.fasta_path, "-a", work / "rewrite-m.sam", "-b", "-o", work / "rewrite-s.bam"])
+    if canonical(work / "rewrite-s.sam") != canonical(work / "rewrite-s.bam"):
+        raise AssertionError("rewrite_cigar: BAM output differs from SAM output")
+    m_ops = sum(b"M" in rec[5] for rec in records((work / "rewrite-m.sam").read_bytes()))
+    s_ops = sum(b"M" in rec[5] for rec in records((work / "rewrite-s.sam").read_bytes()))
+    if m_ops == 0 or s_ops != 0:
+        raise AssertionError(f"rewrite_cigar: {m_ops} records with M after -M, {s_ops} after -S")
+    for mode, extra, src in (("M", [], sample), ("S", ["-r", tool.fasta_path], work / "rewrite-m-sample.sam")):
+        if mode == "S":
+            head_sam(work / "rewrite-m.sam", src, n_sample)
+        run_cli(rewrite + [f"-{mode}", *extra, "-a", src, "-o", work / f"rw-{mode}-fast.sam"])
+        _, secs = run_cli(
+            rewrite + [f"-{mode}", *extra, "-a", src, "-o", work / f"rw-{mode}-slow.sam"],
+            {"PANVC3_REWRITE_TOOL_FAST": "0"},
+        )
+        rate(f"rewrite_cigar -{mode} PANVC3_REWRITE_TOOL_FAST=0", n_sample, secs)
+        same_files(work / f"rw-{mode}-fast.sam", work / f"rw-{mode}-slow.sam", f"rewrite_cigar -{mode} =0")
+
+    # alignment_statistics: four modes, the C engine against the Python loops
+    for mode in ("--coverage", "--count-alignments", "--mapq-histogram", "--mapq-box-plot"):
+        stats = ["alignment_statistics", mode]
+        # coverage prints a line per covered position, and its Python sweep
+        # walks the span between reads: it gets samples of its own
+        n_full, src = (n_sample, sorted_sample) if mode == "--coverage" else (n_reads, sorted_sam)
+        n_slow, slow_src = (n_cov, coverage_sample) if mode == "--coverage" else (n_sample, sorted_sample)
+        full, secs = run_cli(stats + ["-a", src])
+        rate(f"alignment_statistics {mode}", n_full, secs)
+        if mode == "--count-alignments" and f"chr21\t{n_reads}".encode() not in full:
+            raise AssertionError("alignment_statistics --count-alignments: wrong count")
+        fast, _ = run_cli(stats + ["-a", slow_src])
+        slow, secs = run_cli(stats + ["-a", slow_src], {"PANVC3_ALS_FAST": "0"})
+        rate(f"alignment_statistics {mode} PANVC3_ALS_FAST=0", n_slow, secs)
+        if fast != slow or not fast:
+            raise AssertionError(f"alignment_statistics {mode}: PANVC3_ALS_FAST=0 differs")
+    from_bam, _ = run_cli(["alignment_statistics", "--mapq-histogram", "-a", projected_bam, "-b"])
+    from_sam, _ = run_cli(["alignment_statistics", "--mapq-histogram", "-a", projected])
+    if from_bam != from_sam:
+        raise AssertionError("alignment_statistics: BAM input differs from SAM input")
+
+    # count_supporting_reads: a diploid single-sample VCF over REF
+    vcf = work / "variants.vcf"
+    vcf.write_bytes(synth.variants_vcf("chr21", founders["REF"], N_VARIANTS, seed + 3))
+    csr = ["count_supporting_reads", "-i", vcf]
+    full, secs = run_cli(csr + ["-a", sorted_sam])
+    rate("count_supporting_reads", n_reads, secs, f", {N_VARIANTS} variants drawn")
+    if full.count(b"\nR\t") == 0:
+        raise AssertionError("count_supporting_reads: no variant was covered by a read")
+    fast, _ = run_cli(csr + ["-a", sorted_sample])
+    for env in ({"PANVC3_CSR_VCF_FAST": "0"}, {"PANVC3_CSR_FAST": "0"}):
+        slow, secs = run_cli(csr + ["-a", sorted_sample], env)
+        rate(f"count_supporting_reads {next(iter(env))}=0", n_sample, secs)
+        if slow != fast:
+            raise AssertionError(f"count_supporting_reads: {env} differs")
+
+    # convert_bed_positions: REF to founder 1 and back
+    bed = work / "intervals.bed"
+    bed.write_bytes(synth.bed_intervals("chr21", len(founders["REF"]), N_BED, seed + 4))
+    convert = ["convert_bed_positions", "-m", tool.index_path, "-c", "chr21"]
+    there, secs = run_cli(convert + ["-b", bed, "-s", "REF", "-d", "1"])
+    rate("convert_bed_positions", N_BED, secs)
+    piped, _ = run_cli(convert + ["-s", "REF", "-d", "1"], stdin=bed)
+    if piped != there or there.count(b"\n") != N_BED:
+        raise AssertionError("convert_bed_positions: standard input differs from --bed")
+    starts = [int(ln.split(b"\t")[1]) for ln in there.splitlines()]
+    if starts != sorted(starts) or not all(0 <= s <= len(founders["1"]) for s in starts):
+        raise AssertionError("convert_bed_positions: converted starts out of order or range")
+    log(
+        "[tools] split, subset, rewrite_cigar, alignment_statistics, count_supporting_reads: "
+        "switch on == switch =0 on the sample; SAM == BAM where alignments are written; "
+        f"convert_bed_positions: {N_BED} intervals, --bed == standard input"
     )
 
 
@@ -760,6 +1209,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     # per-stage timings of the fast lane, printed to stderr by each run
     os.environ["PANVC3_FASTLANE_PROF"] = "1"
 
@@ -805,6 +1255,7 @@ def main() -> int:
             f"{k_ms:.4f} ms at {shape}, bound {b_ms:.4f} ms ({b_by}), "
             f"{b_ms / k_ms:.1%} of bound ({card})"
         )
+    log(f"[env] all phases passed in {time.perf_counter() - started:.0f} s ({card})")
     log(json.dumps({"kernels": entries}))
     log(card_line())
     if "jax" in sys.modules:

@@ -5,8 +5,9 @@ tested against.  It imports ``torch``, and nothing of ``jax`` or of
 ``panvc3_tpu``: the host modules it needs are copies of the originals,
 trimmed to what the port calls and kept at the same module paths and
 names (``alphabet``, ``cigar``, ``bitvec``, ``msa_index``, ``seqbuf``,
-``utils``, ``io.bgzf``, ``io.fasta``, ``io.sam``, ``align``,
-``indel_runs``, ``rewrite``, ``projector``, ``ops.event_geometry``).  The
+``utils``, ``io.bgzf``, ``io.fasta``, ``io.sam``, ``io.bed``, ``io.vcf``,
+``align``, ``indel_runs``, ``rewrite``, ``projector``,
+``ops.event_geometry``, and the eight host tools under ``pipeline``).  The
 C sources under ``native/`` stay shared: they hold no JAX, import nothing
 of ``panvc3_tpu``, and the port compiles them into its own build
 directory.  Everything that ran on the TPU is ported here, mirroring the
@@ -18,8 +19,10 @@ old layout and names:
   it; in plain PyTorch the device gap index, the rewrite math and gap
   kernel, the event geometry (host and device) and the batch projector
 - ``panvc3_tpu_torch.pipeline``      project_alignments: the fast lane and
-  the object path (device engine) and the host engine
-- ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch project_alignments``
+  the object path (device engine) and the host engine; the other eight
+  tools, which run on the host as they do in ``panvc3_tpu``
+- ``panvc3_tpu_torch.io``            SAM/BAM, BGZF, FASTA, BED, VCF
+- ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch <tool>``, all nine
 
 Device choice is explicit: functions take a ``torch.device``; the CLI's
 ``--device`` defaults to ``cuda`` and raises when no card is present.

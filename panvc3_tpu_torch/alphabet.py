@@ -48,3 +48,15 @@ def decode_phred42(qual: str | bytes) -> np.ndarray:
         qual = qual.encode("latin1")
     arr = np.frombuffer(qual, dtype=np.uint8).astype(np.int32) - PHRED_OFFSET
     return np.clip(arr, 0, PHRED42_MAX)
+
+
+# -- dna11 ------------------------------------------------------------------
+# The 11-letter alphabet of variant-support counting: {A,C,G,N,T}, their
+# lower-case soft-clipped variants and '~', the deletion marker.
+DNA11_CHARS = "ACGNTacgnt~"
+
+
+def dna11_complement(c: str) -> str:
+    comp = {"A": "T", "C": "G", "G": "C", "T": "A", "N": "N",
+            "a": "t", "c": "g", "g": "c", "t": "a", "n": "n", "~": "~"}
+    return comp[c]

@@ -120,11 +120,26 @@ class GapBitVector:
         bits = (arr == ord(gap)).astype(np.uint8)
         return cls(pack_bits(bits), len(bits))
 
+    @classmethod
+    def from_bits(cls, bits: np.ndarray) -> "GapBitVector":
+        bits = np.asarray(bits, dtype=np.uint8)
+        return cls(pack_bits(bits), len(bits))
+
     def __len__(self) -> int:
         return self.n
 
     def __getitem__(self, pos: int) -> int:
         return int((self.words[pos >> 5] >> np.uint32(pos & 31)) & 1)
+
+    def bit_at(self, pos) -> np.ndarray:
+        """Vectorised bit read at aligned positions."""
+        pos = np.asarray(pos, dtype=np.int64)
+        return ((self.words[pos >> 5] >> (pos & 31).astype(np.uint32)) & 1).astype(np.uint8)
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes of the packed bits + rank directory."""
+        return self.words.nbytes + self.sb_rank0.nbytes + self.rel_rank0.nbytes
 
     # -- rank/select -------------------------------------------------------
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import re
 
+import numpy as np
+
 from .native import get_native
 
 OPS = "MIDNSHP=X"
@@ -17,8 +19,9 @@ CODE_TO_OP = {i: op for i, op in enumerate(OPS)}
 
 M, I, D, N, S, H, P, EQ, X = range(9)
 
-# Which ops consume the query (SAMv1 table).
+# Which ops consume query / reference (SAMv1 table).
 CONSUMES_QUERY = frozenset("MIS=X")
+CONSUMES_REF = frozenset("MDN=X")
 
 _CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=X])")
 
@@ -88,5 +91,84 @@ class CigarBuffer:
         return self._ops
 
 
+def cigar_eq(lhs: Cigar, rhs: Cigar, count_padding: bool = False) -> bool:
+    """Order-insensitive equality over indel runs.
+
+    Two CIGARs are equal iff their non-indel operations match exactly and
+    every maximal run of I/D (optionally P) operations has the same total
+    insertion and deletion counts.
+    """
+
+    def count_indels(seq: Cigar, idx: int):
+        ins = dels = 0
+        while idx < len(seq):
+            n, op = seq[idx]
+            if op == "I":
+                ins += n
+                idx += 1
+            elif op == "D":
+                dels += n
+                idx += 1
+            elif count_padding and op == "P":
+                idx += 1
+            else:
+                break
+        return idx, ins, dels
+
+    li = ri = 0
+    while True:
+        li, lins, ldel = count_indels(lhs, li)
+        ri, rins, rdel = count_indels(rhs, ri)
+        if (lins, ldel) != (rins, rdel):
+            return False
+        l_has = li < len(lhs)
+        r_has = ri < len(rhs)
+        if not l_has and not r_has:
+            return True
+        if l_has != r_has:
+            return False
+        if lhs[li] != rhs[ri]:
+            return False
+        li += 1
+        ri += 1
+
+
 def cigar_query_length(cigar: Cigar) -> int:
     return sum(n for n, op in cigar if op in CONSUMES_QUERY)
+
+
+def cigar_ref_length(cigar: Cigar) -> int:
+    return sum(n for n, op in cigar if op in CONSUMES_REF)
+
+
+# -- numpy codecs -------------------------------------------------------------
+
+def cigar_to_arrays(cigar: Cigar, pad_to: int | None = None):
+    """Encode a CIGAR as (counts:int32[K], opcodes:int8[K]) arrays.
+
+    If ``pad_to`` is given, pads with zero counts / op code 0.
+    """
+    k = len(cigar)
+    n = pad_to if pad_to is not None else k
+    if k > n:
+        raise ValueError(f"CIGAR with {k} ops does not fit in {n}")
+    counts = np.zeros(n, dtype=np.int32)
+    codes = np.zeros(n, dtype=np.int8)
+    for i, (cnt, op) in enumerate(cigar):
+        counts[i] = cnt
+        codes[i] = OP_TO_CODE[op]
+    return counts, codes
+
+
+def arrays_to_cigar(counts, codes) -> Cigar:
+    """Decode (counts, opcodes) arrays into a collapsed CIGAR list."""
+    out: Cigar = []
+    for cnt, code in zip(np.asarray(counts).tolist(), np.asarray(codes).tolist()):
+        if cnt <= 0:
+            continue
+        op = CODE_TO_OP[int(code)]
+        if out and out[-1][1] == op:
+            out[-1] = (out[-1][0] + int(cnt), op)
+        else:
+            out.append((int(cnt), op))
+    return out

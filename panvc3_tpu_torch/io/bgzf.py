@@ -1,6 +1,6 @@
-"""BGZF (blocked gzip) reading for bgzip-compressed FASTA with ``.gzi``
-block indexes (copy of ``panvc3_tpu.io.bgzf``, reader side only: BAM is
-not ported).  Spans inflate in parallel in the C host extension.
+"""BGZF (blocked gzip) reading and writing, for bgzip-compressed FASTA
+with ``.gzi`` block indexes and for BAM (copy of ``panvc3_tpu.io.bgzf``).
+Blocks inflate and deflate in parallel in the C host extension.
 """
 
 from __future__ import annotations
@@ -11,6 +11,11 @@ import struct
 from ..native import get_native
 
 BGZF_MAGIC = b"\x1f\x8b\x08\x04"
+# Empty BGZF block used as EOF marker (fixed 28-byte sequence from the spec).
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000"
+)
+MAX_BLOCK_UNCOMPRESSED = 65280
 
 
 def is_bgzf(path: str) -> bool:
@@ -44,6 +49,18 @@ def _parse_block_header(buf, off: int) -> int:
             return struct.unpack_from("<H", buf, xo + 4)[0] + 1
         xo += 4 + slen
     raise ValueError("BGZF block without BC subfield")
+
+
+def whole_block_prefix(buf) -> int:
+    """Largest p such that buf[:p] consists of whole BGZF blocks."""
+    off = 0
+    n = len(buf)
+    while off < n:
+        bsize = _parse_block_header(buf, off)
+        if bsize == 0 or off + bsize > n:
+            break
+        off += bsize
+    return off
 
 
 class BgzfReader:
@@ -125,3 +142,41 @@ class BgzfReader:
         data = get_native().bgzf_decompress(span, bgzf_threads())
         off = start - uncomp_off
         return data[off:off + length]
+
+
+class BgzfWriter:
+    """Streaming BGZF writer (used for BAM and bgzipped text output).
+
+    Whole 65280-byte blocks are deflated in parallel over pthreads in
+    ~4 MiB batches."""
+
+    def __init__(self, fileobj, level: int = 6):
+        self._fh = fileobj
+        self._level = level
+        self._buf = bytearray()
+        self._nat = get_native()
+        self._flush_at = MAX_BLOCK_UNCOMPRESSED * 64
+
+    def write(self, data: bytes) -> None:
+        self._buf += data
+        if len(self._buf) >= self._flush_at:
+            whole = (
+                len(self._buf) // MAX_BLOCK_UNCOMPRESSED
+            ) * MAX_BLOCK_UNCOMPRESSED
+            self._fh.write(
+                self._nat.bgzf_compress(
+                    bytes(self._buf[:whole]), self._level, bgzf_threads()
+                )
+            )
+            del self._buf[:whole]
+
+    def close(self) -> None:
+        if self._buf:
+            self._fh.write(
+                self._nat.bgzf_compress(
+                    bytes(self._buf), self._level, bgzf_threads()
+                )
+            )
+            self._buf.clear()
+        self._fh.write(BGZF_EOF)
+        self._fh.flush()

@@ -1,7 +1,8 @@
-"""FASTA reading, including random access into bgzip-compressed FASTA via
-``.fai`` + ``.gzi`` indexes (copy of ``panvc3_tpu.io.fasta``, reader
-only): per-sequence random access decompresses from the nearest indexed
-block and strips newlines using the faidx line-length fields.
+"""FASTA reading and writing, including random access into
+bgzip-compressed FASTA via ``.fai`` + ``.gzi`` indexes (copy of
+``panvc3_tpu.io.fasta``): per-sequence random access decompresses from
+the nearest indexed block and strips newlines using the faidx line-length
+fields.
 """
 
 from __future__ import annotations
@@ -126,3 +127,16 @@ class FastaReader:
         if len(seq) != e.length:
             raise ValueError(f"{self.path}: truncated sequence {name}")
         return seq
+
+
+def write_fasta(fh, name: str, seq: bytes | str, line_width: int = 0) -> None:
+    """Write one FASTA record; ``line_width`` 0 means a single line
+    (matching index_msa --fasta-line-width default)."""
+    if isinstance(seq, str):
+        seq = seq.encode("ascii")
+    fh.write(f">{name}\n".encode())
+    if line_width <= 0:
+        fh.write(seq + b"\n")
+    else:
+        for i in range(0, len(seq), line_width):
+            fh.write(seq[i:i + line_width] + b"\n")

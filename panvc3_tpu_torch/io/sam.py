@@ -1,8 +1,9 @@
-"""SAM records, headers, readers and writers (copy of
-``panvc3_tpu.io.sam``, trimmed to what the port calls).  Records parse and
-format in C (the port's build of the host extension); BAM input and
-output are not ported (ROADMAP Queue 1 item 8) and raise.  Conventions
-match seqan3's observable output:
+"""SAM/BAM records, headers, readers and writers (copy of
+``panvc3_tpu.io.sam``, trimmed to what the port calls).  SAM text parses
+and formats in C (the port's build of the host extension), which also
+converts BAM record regions to SAM text lines and back; ``SamWriter.write``
+encodes BAM records in Python.  Conventions match seqan3's observable
+output:
 
 - positions are stored 0-based internally (-1 == unset); SAM text uses
   1-based with 0 for missing,
@@ -15,13 +16,30 @@ match seqan3's observable output:
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass, field
 
-from ..cigar import Cigar
+from .bgzf import BgzfWriter, bgzf_threads, whole_block_prefix
 from ..native import get_native
+from ..cigar import Cigar, OPS, cigar_query_length
 
-_BAM_NOT_PORTED = "BAM input/output on the port is ROADMAP Queue 1 item 8"
+# FLAG bits (SAMv1)
+FLAG_UNMAPPED = 0x4
 FLAG_REVERSE = 0x10
+
+_BAM_SEQ_CODE = "=ACMGRSVTWYHKDBN"
+_BAM_SEQ_ENCODE = {c: i for i, c in enumerate(_BAM_SEQ_CODE)}
+for _c, _i in list(_BAM_SEQ_ENCODE.items()):
+    _BAM_SEQ_ENCODE[_c.lower()] = _i
+
+# bulk codec tables: the per-base loops run in C via bytes.translate /
+# bytes.hex / bytes.fromhex instead of Python-level character loops
+_BAM_SEQ_HEX_DECODE = str.maketrans("0123456789abcdef", _BAM_SEQ_CODE)
+_BAM_SEQ_BYTE_ENCODE = bytes(_BAM_SEQ_ENCODE.get(chr(i), 15) for i in range(256))
+_CODE_TO_HEX = b"0123456789abcdef" + bytes(240)
+_QUAL_SUB33 = bytes((i - 33) & 0xFF for i in range(256))
+_QUAL_ADD33 = bytes((i + 33) & 0xFF for i in range(256))
+_OP_TO_CODE = {op: i for i, op in enumerate("MIDNSHP=X")}
 
 
 @dataclass
@@ -117,9 +135,19 @@ class SamRecord:
     qual: str = "*"
     tags: dict[str, tuple[str, object]] = field(default_factory=dict)
 
+    # -- flag helpers ------------------------------------------------------
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & FLAG_UNMAPPED)
+
     @property
     def is_reverse(self) -> bool:
         return bool(self.flag & FLAG_REVERSE)
+
+    def query_length(self) -> int:
+        if self.seq != "*":
+            return len(self.seq)
+        return cigar_query_length(self.cigar)
 
 
 # -- tag codecs -------------------------------------------------------------
@@ -209,12 +237,157 @@ def format_sam_record(rec: SamRecord, header: SamHeader) -> str:
     )
 
 
+# -- BAM --------------------------------------------------------------------
+
+def _decode_bam_tags(buf: bytes) -> dict[str, tuple[str, object]]:
+    tags: dict[str, tuple[str, object]] = {}
+    off = 0
+    n = len(buf)
+    int_fmt = {"c": "<b", "C": "<B", "s": "<h", "S": "<H", "i": "<i", "I": "<I"}
+    int_sz = {"c": 1, "C": 1, "s": 2, "S": 2, "i": 4, "I": 4}
+    while off < n:
+        tag = buf[off:off + 2].decode()
+        typ = chr(buf[off + 2])
+        off += 3
+        if typ == "A":
+            tags[tag] = ("A", chr(buf[off]))
+            off += 1
+        elif typ in int_fmt:
+            (v,) = struct.unpack_from(int_fmt[typ], buf, off)
+            off += int_sz[typ]
+            tags[tag] = ("i", v)
+        elif typ == "f":
+            (v,) = struct.unpack_from("<f", buf, off)
+            off += 4
+            tags[tag] = ("f", v)
+        elif typ in ("Z", "H"):
+            end = buf.index(0, off)
+            tags[tag] = (typ, buf[off:end].decode())
+            off = end + 1
+        elif typ == "B":
+            sub = chr(buf[off])
+            (cnt,) = struct.unpack_from("<I", buf, off + 1)
+            off += 5
+            if sub == "f":
+                vals = list(struct.unpack_from(f"<{cnt}f", buf, off))
+                off += 4 * cnt
+            else:
+                fmt = {"c": "b", "C": "B", "s": "h", "S": "H", "i": "i", "I": "I"}[sub]
+                vals = list(struct.unpack_from(f"<{cnt}{fmt}", buf, off))
+                off += int_sz[sub] * cnt
+            tags[tag] = ("B", (sub, vals))
+        else:
+            raise ValueError(f"unknown BAM tag type {typ!r}")
+    return tags
+
+
+def _encode_bam_tags(tags: dict[str, tuple[str, object]]) -> bytes:
+    out = bytearray()
+    for tag in sorted(tags):
+        typ, val = tags[tag]
+        out += tag.encode()
+        if typ == "A":
+            out += b"A" + val.encode()
+        elif typ == "i":
+            v = int(val)
+            # choose the smallest width like htslib does
+            if 0 <= v <= 0xFF:
+                out += b"C" + struct.pack("<B", v)
+            elif -0x80 <= v < 0x80:
+                out += b"c" + struct.pack("<b", v)
+            elif 0 <= v <= 0xFFFF:
+                out += b"S" + struct.pack("<H", v)
+            elif -0x8000 <= v < 0x8000:
+                out += b"s" + struct.pack("<h", v)
+            elif v < 0:
+                out += b"i" + struct.pack("<i", v)
+            else:
+                out += b"I" + struct.pack("<I", v)
+        elif typ == "f":
+            out += b"f" + struct.pack("<f", float(val))
+        elif typ in ("Z", "H"):
+            out += typ.encode() + val.encode() + b"\x00"
+        elif typ == "B":
+            sub, items = val
+            out += b"B" + sub.encode() + struct.pack("<I", len(items))
+            fmt = {"c": "b", "C": "B", "s": "h", "S": "H", "i": "i", "I": "I", "f": "f"}[sub]
+            for x in items:
+                out += struct.pack("<" + fmt, x)
+        else:
+            raise ValueError(f"unknown tag type {typ!r}")
+    return bytes(out)
+
+
+def _decode_bam_record(buf: bytes, header: SamHeader) -> SamRecord:
+    (ref_id, pos, l_read_name, mapq, _bin, n_cigar, flag, l_seq,
+     next_ref, next_pos, tlen) = struct.unpack_from("<iiBBHHHiiii", buf, 0)
+    off = 32
+    qname = buf[off:off + l_read_name - 1].decode()
+    off += l_read_name
+    cigar: Cigar = []
+    for _ in range(n_cigar):
+        (v,) = struct.unpack_from("<I", buf, off)
+        off += 4
+        cigar.append((v >> 4, OPS[v & 0xF]))
+    if l_seq:
+        nb = (l_seq + 1) // 2
+        raw = buf[off:off + nb]
+        off += nb
+        # each nibble is one base: hex-expand then map hex digit -> base
+        seq = raw.hex().translate(_BAM_SEQ_HEX_DECODE)[:l_seq]
+        qraw = buf[off:off + l_seq]
+        off += l_seq
+        qual = (
+            "*" if qraw[0] == 0xFF
+            else qraw.translate(_QUAL_ADD33).decode("latin-1")
+        )
+    else:
+        seq = "*"
+        qual = "*"
+    tags = _decode_bam_tags(buf[off:])
+    return SamRecord(
+        qname=qname, flag=flag, ref_id=ref_id, pos=pos, mapq=mapq,
+        cigar=cigar, mate_ref_id=next_ref, mate_pos=next_pos, tlen=tlen,
+        seq=seq, qual=qual, tags=tags,
+    )
+
+
+def _encode_bam_record(rec: SamRecord) -> bytes:
+    qname_b = rec.qname.encode() + b"\x00"
+    cigar_b = struct.pack(
+        "<%dI" % len(rec.cigar),
+        *((n << 4) | _OP_TO_CODE[op] for n, op in rec.cigar),
+    )
+    if rec.seq != "*":
+        l_seq = len(rec.seq)
+        codes = rec.seq.encode("latin-1").translate(_BAM_SEQ_BYTE_ENCODE)
+        if l_seq % 2:
+            codes += b"\x00"
+        # pair nibbles: code bytes -> hex digits -> packed bytes
+        seq_b = bytes.fromhex(codes.translate(_CODE_TO_HEX).decode("ascii"))
+        if rec.qual == "*":
+            qual_b = b"\xff" * l_seq
+        else:
+            qual_b = rec.qual.encode("latin-1").translate(_QUAL_SUB33)
+    else:
+        l_seq = 0
+        seq_b = b""
+        qual_b = b""
+    tags_b = _encode_bam_tags(rec.tags)
+    body = struct.pack(
+        "<iiBBHHHiiii",
+        rec.ref_id, rec.pos, len(qname_b), rec.mapq, 0,
+        len(rec.cigar), rec.flag, l_seq, rec.mate_ref_id, rec.mate_pos, rec.tlen,
+    ) + qname_b + bytes(cigar_b) + bytes(seq_b) + qual_b + tags_b
+    return struct.pack("<I", len(body)) + body
+
+
 # -- file-level readers/writers --------------------------------------------
 
 class SamReader:
-    """Streaming reader over SAM text, plain or gzipped."""
+    """Streaming reader over SAM text or BAM (auto-detected)."""
 
-    def __init__(self, path_or_fh):
+    def __init__(self, path_or_fh, *, is_bam: bool | None = None):
         import gzip as _gzip
         import io as _io
 
@@ -227,7 +400,8 @@ class SamReader:
         if not isinstance(fh, _io.BufferedReader) or not hasattr(fh, "peek"):
             fh = _io.BufferedReader(fh)
         self._fh = fh
-        if self._fh.peek(4)[:2] == b"\x1f\x8b":
+        head = self._fh.peek(4)[:4]
+        if is_bam is None and head[:2] == b"\x1f\x8b":
             # gzip container: BAM (BGZF with a BAM\1 payload) or gzipped SAM
             # text — peek at the decompressed head to tell them apart
             probe = _gzip.GzipFile(fileobj=_io.BytesIO(self._fh.peek(65536)))
@@ -236,8 +410,21 @@ class SamReader:
             except (OSError, EOFError):
                 inner = b""
             if inner == b"BAM\x01":
-                raise NotImplementedError(_BAM_NOT_PORTED)
-            self._fh = _io.BufferedReader(_gzip.GzipFile(fileobj=self._fh))
+                is_bam = True
+            else:
+                is_bam = False
+                self._fh = _io.BufferedReader(_gzip.GzipFile(fileobj=self._fh))
+        if is_bam is None:
+            is_bam = False
+        self.is_bam = is_bam
+        self.header: SamHeader
+        if is_bam:
+            self._init_bam()
+        else:
+            self._init_sam()
+
+    # SAM text ---------------------------------------------------------
+    def _init_sam(self):
         header_lines = []
         self._first_record_line: str | None = None
         while True:
@@ -252,9 +439,98 @@ class SamReader:
                 break
         self.header = SamHeader.parse("\n".join(header_lines))
 
+    # BAM --------------------------------------------------------------
+    def _init_bam(self):
+        self._bam_buf = bytearray()
+        self._bam_comp = bytearray()
+        self._bam_eof = False
+        data = self._bam_need(4)
+        if data[:4] != b"BAM\x01":
+            raise ValueError("not a BAM file")
+        self._bam_skip(4)
+        (l_text,) = struct.unpack("<i", self._bam_need(4)[:4])
+        self._bam_skip(4)
+        text = self._bam_need(l_text)[:l_text].decode()
+        self._bam_skip(l_text)
+        (n_ref,) = struct.unpack("<i", self._bam_need(4)[:4])
+        self._bam_skip(4)
+        ref_names = []
+        ref_lengths = []
+        for _ in range(n_ref):
+            (l_name,) = struct.unpack("<i", self._bam_need(4)[:4])
+            self._bam_skip(4)
+            name = self._bam_need(l_name)[:l_name - 1].decode()
+            self._bam_skip(l_name)
+            (l_ref,) = struct.unpack("<i", self._bam_need(4)[:4])
+            self._bam_skip(4)
+            ref_names.append(name)
+            ref_lengths.append(l_ref)
+        self.header = SamHeader.parse(text)
+        # trust the binary reference list if the text header lacks @SQ
+        if not self.header.ref_names:
+            self.header.ref_names = ref_names
+            self.header.ref_lengths = ref_lengths
+            self.header.ref_extras = [""] * len(ref_names)
+            for n, l in zip(ref_names, ref_lengths):
+                self.header.lines.append(f"@SQ\tSN:{n}\tLN:{l}")
+
+    def _bam_fill(self) -> bool:
+        # inflate all whole blocks of a ~4 MiB compressed chunk at once, in
+        # parallel (the compressed remainder carries to the next fill)
+        comp = self._bam_comp
+        while True:
+            chunk = self._fh.read(1 << 22)
+            if chunk:
+                comp += chunk
+            p = whole_block_prefix(comp)
+            if p:
+                self._bam_buf += get_native().bgzf_decompress(
+                    bytes(comp[:p]), bgzf_threads()
+                )
+                del comp[:p]
+                return True
+            if not chunk:
+                self._bam_eof = True
+                if comp:
+                    raise ValueError("truncated BGZF block at EOF")
+                return False
+
+    def _bam_need(self, n: int) -> bytes:
+        while len(self._bam_buf) < n and not self._bam_eof:
+            self._bam_fill()
+        return bytes(self._bam_buf[:n])
+
+    def _bam_skip(self, n: int) -> None:
+        del self._bam_buf[:n]
+
     def raw_record_line_blocks(self, hint: int = 1 << 20):
-        """Yield blocks (lists) of raw record line bytes (the fast lane
-        consumes lines without building SamRecord objects)."""
+        """Yield blocks (lists) of raw record line bytes.
+
+        The fast lanes consume lines directly without building SamRecord
+        objects.  BAM input converts record regions to SAM text lines in C
+        (bam_to_sam_lines); SAM text streams pass through."""
+        if self.is_bam:
+            nat = get_native()
+            names = self.header.ref_names
+            need = hint
+            while True:
+                while len(self._bam_buf) < need and not self._bam_eof:
+                    self._bam_fill()
+                if not self._bam_buf:
+                    return
+                lines, consumed = nat.bam_to_sam_lines(
+                    bytes(self._bam_buf), names
+                )
+                if consumed == 0:
+                    if self._bam_eof:
+                        raise ValueError("truncated BAM record at EOF")
+                    need = len(self._bam_buf) * 2  # record spans the buffer
+                    continue
+                need = hint
+                self._bam_skip(consumed)
+                if lines:
+                    yield lines
+            return
         if self._first_record_line is not None:
             first = self._first_record_line.encode()
             self._first_record_line = None
@@ -265,7 +541,15 @@ class SamReader:
                 return
             yield block
 
+    # ------------------------------------------------------------------
     def __iter__(self):
+        if self.is_bam:
+            # C decode to SAM text + C text parse; record values equal
+            # those of _decode_bam_record
+            for block in self.raw_record_line_blocks():
+                for ln in block:
+                    yield parse_sam_record(ln.decode(), self.header)
+            return
         if self._first_record_line is not None:
             yield parse_sam_record(self._first_record_line, self.header)
             self._first_record_line = None
@@ -283,11 +567,9 @@ class SamReader:
 
 
 class SamWriter:
-    """SAM text writer."""
+    """SAM text or BAM writer."""
 
     def __init__(self, path_or_fh, header: SamHeader, *, bam: bool = False):
-        if bam:
-            raise NotImplementedError(_BAM_NOT_PORTED)
         if isinstance(path_or_fh, str):
             self._fh = open(path_or_fh, "wb")
             self._owns = True
@@ -295,16 +577,45 @@ class SamWriter:
             self._fh = path_or_fh
             self._owns = False
         self.header = header
-        self._fh.write(header.to_text().encode())
+        self.bam = bam
+        if bam:
+            self._bgzf = BgzfWriter(self._fh)
+            text = header.to_text().encode()
+            out = b"BAM\x01" + struct.pack("<i", len(text)) + text
+            out += struct.pack("<i", len(header.ref_names))
+            for name, length in zip(header.ref_names, header.ref_lengths):
+                nb = name.encode() + b"\x00"
+                out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
+            self._bgzf.write(out)
+        else:
+            self._fh.write(header.to_text().encode())
 
     def write(self, rec: SamRecord) -> None:
-        self._fh.write(format_sam_record(rec, self.header).encode() + b"\n")
+        if self.bam:
+            self._bgzf.write(_encode_bam_record(rec))
+        else:
+            self._fh.write(format_sam_record(rec, self.header).encode() + b"\n")
 
-    def write_raw(self, blob: bytes) -> None:
-        """Write pre-formatted SAM text (newline-terminated lines)."""
+    def write_raw(self, blob: bytes, names: list[str] | None = None) -> None:
+        """Write pre-formatted SAM text (newline-terminated lines).
+
+        BAM mode converts the text blob to BAM records in C
+        (sam_text_to_bam) and streams them through the BGZF writer.
+        ``names`` overrides the RNAME lookup table for the conversion (used
+        when the output header renames references but the text still
+        carries the input names — BAM stores reference ids)."""
+        if self.bam:
+            self._bgzf.write(
+                get_native().sam_text_to_bam(
+                    blob, names or self.header.ref_names
+                )
+            )
+            return
         self._fh.write(blob)
 
     def close(self) -> None:
+        if self.bam:
+            self._bgzf.close()
         self._fh.flush()
         if self._owns:
             self._fh.close()

@@ -58,6 +58,10 @@ class SequenceEntry:
     def unaligned_length(self) -> int:
         return self.gaps.n_zeros
 
+    @property
+    def aligned_length(self) -> int:
+        return self.gaps.n
+
 
 @dataclass
 class ChrEntry:
@@ -102,6 +106,20 @@ class MsaIndex:
         if lo < len(entries) and entries[lo].chr_id == chr_id:
             return entries[lo]
         return None
+
+    def find(self, chr_id: str, seq_id: str) -> SequenceEntry | None:
+        chrom = self.find_chr(chr_id)
+        if chrom is None:
+            return None
+        return chrom.find(seq_id)
+
+    def get_or_add_chr(self, chr_id: str) -> ChrEntry:
+        chrom = self.find_chr(chr_id)
+        if chrom is None:
+            chrom = ChrEntry(chr_id)
+            self.chr_entries.append(chrom)
+            self.chr_entries.sort(key=lambda e: e.chr_id)
+        return chrom
 
     # -- serialisation -----------------------------------------------------
 
@@ -209,3 +227,14 @@ class MsaIndex:
                 if chr_id not in ids:
                     ids.append(chr_id)
         return sorted(ids)
+
+
+def make_sequence_entry_pair(src_aligned: str, dst_aligned: str) -> tuple[SequenceEntry, SequenceEntry]:
+    """Test helper: the two entries of a pairwise alignment given as
+    gapped strings."""
+    if len(src_aligned) != len(dst_aligned):
+        raise ValueError("aligned sequences must have equal length")
+    return (
+        SequenceEntry("", GapBitVector.from_gap_string(src_aligned)),
+        SequenceEntry("", GapBitVector.from_gap_string(dst_aligned)),
+    )

@@ -383,12 +383,7 @@ _ADAPT = LaneController()
 
 def check_covered(cfg) -> None:
     """Raise NotImplementedError for a configuration the port's device
-    engine does not run; nothing falls through to another path (BAM input
-    raises in ``SamReader``)."""
-    if cfg.output_bam:
-        raise NotImplementedError(
-            "BAM input/output on the port's fast lane is ROADMAP Queue 1 item 8"
-        )
+    engine does not run; nothing falls through to another path."""
     if cfg.fused_kernel:
         raise NotImplementedError(
             "the fused engines (--fused-kernel) are ROADMAP Queue 1 item 6"
@@ -401,7 +396,8 @@ def check_covered(cfg) -> None:
 
 def fastlane_eligible(cfg, batch_engine=None) -> bool:
     """Whether the fast lane runs this configuration; the caller takes the
-    object path otherwise.  Device sequence ids must fit the gap wire's
+    object path otherwise.  BAM input and output go through the C
+    BAM<->SAM-text converters.  Device sequence ids must fit the gap wire's
     u16 fields (a >65k-sequence index should be sharded with
     ``--msa-index-chr-shard``)."""
     return not cfg.fused_kernel and (

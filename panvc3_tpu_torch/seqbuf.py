@@ -10,7 +10,7 @@ references, so eviction never invalidates in-flight work.
 from __future__ import annotations
 
 import threading
-from typing import Callable
+from typing import Callable, Iterator
 
 
 class SequenceBufferStore:
@@ -64,3 +64,12 @@ class SequenceBufferStore:
     # the host oracle reads the store like a dict
     def __getitem__(self, key: int) -> bytes:
         return self.get(key)
+
+    def __contains__(self, key: int) -> bool:
+        return key in self._map
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self._map)

@@ -9,7 +9,10 @@ same random A/C/G/T column sequence with its own 2% of gap columns, and
 ``bench.py`` (``synthesise_records``: match, deletion, insertion plus
 deletion; ``synthesise_heavy_records``: one 48I48D run per read), with a
 constant quality string or, for quality-scored (``-q``) runs, phreds
-drawn from the seed.
+drawn from the seed.  For the tools after projection: read pairs aligned
+to every founder with ``AS:i`` tags (QNAME-grouped, what
+``recalculate_mapq`` takes once they are projected), a diploid
+single-sample VCF over the reference row, and BED intervals.
 """
 
 from __future__ import annotations
@@ -117,3 +120,73 @@ def reads_sam(
             f"{seq.decode()}\t{qual}"
         )
     return ("\n".join(lines) + "\n").encode()
+
+
+def pairs_sam(
+    chr_id: str,
+    founders: dict[str, bytes],
+    n_pairs: int,
+    seed: int,
+    read_len: int = 100,
+) -> bytes:
+    """SAM text of ``n_pairs`` read pairs, each aligned to every founder
+    (not to REF) as a proper pair of two ``100=`` mates 150-350 bp apart,
+    at the same relative place in each founder, with a seeded ``AS:i``:
+    QNAME-grouped, 2 x 4 records per pair."""
+    rng = np.random.default_rng(seed)
+    sids = [sid for sid in founders if sid != "REF"]
+    lines = ["@HD\tVN:1.6\tSO:unsorted\tGO:query"]
+    for sid in founders:
+        lines.append(f"@SQ\tSN:{chr_id}/{sid}\tLN:{len(founders[sid])}")
+    shortest = min(len(founders[sid]) for sid in sids)
+    starts = rng.integers(0, shortest - 2 * read_len - 400, n_pairs).tolist()
+    gaps = rng.integers(150, 351, n_pairs).tolist()
+    scores = rng.integers(0, 31, (n_pairs, len(sids), 2)).tolist()
+    qual = "I" * read_len
+    for i in range(n_pairs):
+        p1 = starts[i]
+        p2 = p1 + gaps[i]
+        tlen = p2 + read_len - p1
+        for k, sid in enumerate(sids):
+            s = founders[sid]
+            rname = f"{chr_id}/{sid}"
+            lines.append(
+                f"p{i}\t99\t{rname}\t{p1 + 1}\t60\t{read_len}=\t=\t{p2 + 1}\t{tlen}\t"
+                f"{s[p1:p1 + read_len].decode()}\t{qual}\tAS:i:-{scores[i][k][0]}"
+            )
+            lines.append(
+                f"p{i}\t147\t{rname}\t{p2 + 1}\t60\t{read_len}=\t=\t{p1 + 1}\t{-tlen}\t"
+                f"{s[p2:p2 + read_len].decode()}\t{qual}\tAS:i:-{scores[i][k][1]}"
+            )
+    return ("\n".join(lines) + "\n").encode()
+
+
+def variants_vcf(chr_id: str, reference: bytes, n_variants: int, seed: int) -> bytes:
+    """A position-sorted VCF of at most ``n_variants`` SNPs (drawn with
+    replacement, kept once) over ``reference`` for one diploid sample,
+    genotypes 0|1, 1|0 and 1|1."""
+    rng = np.random.default_rng(seed)
+    pos = np.unique(rng.integers(1, len(reference) - 1, n_variants))
+    n_variants = len(pos)
+    ref = np.frombuffer(reference, np.uint8)[pos - 1]
+    alt = _ACGT[(np.searchsorted(_ACGT, ref) + rng.integers(1, 4, n_variants)) % 4]
+    gts = np.array(["0|1", "1|0", "1|1"])[rng.integers(0, 3, n_variants)]
+    lines = [
+        "##fileformat=VCFv4.2",
+        f"##contig=<ID={chr_id},length={len(reference)}>",
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS1",
+    ]
+    lines += [
+        f"{chr_id}\t{p}\tv{j}\t{chr(r)}\t{chr(a)}\t.\tPASS\t.\tGT\t{g}"
+        for j, (p, r, a, g) in enumerate(zip(pos.tolist(), ref.tolist(), alt.tolist(), gts.tolist()))
+    ]
+    return ("\n".join(lines) + "\n").encode()
+
+
+def bed_intervals(chr_id: str, length: int, n_intervals: int, seed: int) -> bytes:
+    """``n_intervals`` start-sorted BED intervals of 1-500 bp on ``chr_id``."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.integers(0, length - 501, n_intervals))
+    ends = starts + rng.integers(1, 501, n_intervals)
+    return "".join(f"{chr_id}\t{a}\t{b}\n" for a, b in zip(starts.tolist(), ends.tolist())).encode()

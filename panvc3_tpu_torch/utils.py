@@ -55,3 +55,10 @@ class StatusReporter:
         if self.extra_cb is not None:
             msg += self.extra_cb()
         log_time(msg + ".")
+
+    def final(self, n_processed: int) -> None:
+        elapsed = time.monotonic() - self.start
+        msg = f"Done; processed {n_processed} {self.what} in {format_duration(elapsed)}"
+        if n_processed and elapsed > 0:
+            msg += f" ({n_processed / elapsed:.0f} {self.what}/s)"
+        log_time(msg + ".")

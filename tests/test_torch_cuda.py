@@ -371,3 +371,84 @@ def test_device_geometry_paths_on_card_match_cpu(cuda, tmp_path, monkeypatch, qu
         else:
             assert not any(launched.values()), launched
     assert outs["cuda"] == outs["cpu"]
+
+
+# -- BAM on the device lane, and the tools beside a live CUDA context
+
+
+@pytest.mark.parametrize("quality,entry", [(False, "realign_fused_int"), (True, "realign_fused_qual")], ids=["int", "q"])
+def test_bam_in_and_out_on_card_matches_sam_run(cuda, tmp_path, monkeypatch, quality, entry):
+    """project_alignments -B -b on the device lane: the records read back
+    from its BAM are the lines of the SAM run, and K1 launched."""
+    from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.cli.main import main
+    from panvc3_tpu_torch.io.sam import SamReader, SamWriter
+    from panvc3_tpu_torch.ops import _kernels
+
+    rows = synth.make_msa(300_000, seed=5)
+    index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
+    sam_path = tmp_path / "in.sam"
+    sam_path.write_bytes(synth.reads_sam("c1", founders, 6000, seed=6, qualities=quality))
+    reader = SamReader(str(sam_path))
+    writer = SamWriter(str(tmp_path / "in.bam"), reader.header, bam=True)
+    for block in reader.raw_record_line_blocks():
+        writer.write_raw(b"".join(block))
+    writer.close()
+    monkeypatch.setenv("PANVC3_HOST_DP", "0")
+    common = ["project_alignments", "--device", "cuda", "-m", str(index_path), "-r", str(fasta_path),
+              "-d", "REF", "-s", "/", "--status-output-interval", "0"] + (["-q"] if quality else [])
+    assert main(common + ["-a", str(sam_path), "-o", str(tmp_path / "out.sam")]) == 0
+    before = _kernels.LAUNCHES[entry]
+    assert main(common + ["-a", str(tmp_path / "in.bam"), "-B", "-b", "-o", str(tmp_path / "out.bam")]) == 0
+    assert _kernels.LAUNCHES[entry] > before
+    out = SamReader(str(tmp_path / "out.bam"))
+    assert out.is_bam
+    got = b"".join(ln for block in out.raw_record_line_blocks() for ln in block)
+    want = b"".join(
+        ln + b"\n" for ln in (tmp_path / "out.sam").read_bytes().split(b"\n")
+        if ln and not ln.startswith(b"@")
+    )
+    assert got == want and got.count(b"\n") == 6000
+
+
+def test_recalculate_mapq_spawns_beside_a_cuda_context(cuda, tmp_path):
+    """After a launch on the card the pool's start method is ``spawn``;
+    --jobs 3 then gives the output of --jobs 1, and the tool neither
+    allocates on the card nor launches a kernel."""
+    import multiprocessing
+
+    from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.cli.main import main
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.pipeline import recalculate_mapq as rm
+
+    rows = synth.make_msa(300_000, seed=5)
+    index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
+    founder_pairs = tmp_path / "founder_pairs.sam"
+    founder_pairs.write_bytes(synth.pairs_sam("c1", founders, 6000, seed=7))
+    # projection on the card gives the records their XR/XP/YR/YP tags, and
+    # leaves the process with a live CUDA context
+    pairs = tmp_path / "pairs.sam"
+    assert main(["project_alignments", "--device", "cuda", "-a", str(founder_pairs), "-o", str(pairs),
+                 "-m", str(index_path), "-r", str(fasta_path), "-d", "REF", "-s", "/",
+                 "--status-output-interval", "0"]) == 0
+    assert torch.cuda.is_initialized() and rm.mp_start_method() == "spawn"
+    methods = []
+    get_context = multiprocessing.get_context
+    multiprocessing.get_context = lambda m=None: (methods.append(m), get_context(m))[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    launches = dict(_kernels.LAUNCHES)
+    try:
+        for jobs in (1, 3):
+            assert main(["recalculate_mapq", "-a", str(pairs), "-o", str(tmp_path / f"j{jobs}.sam"),
+                         "--jobs", str(jobs), "--status-output-interval", "0"]) == 0
+    finally:
+        multiprocessing.get_context = get_context
+    assert methods == ["spawn"]
+    strip = lambda b: [ln for ln in b.split(b"\n") if not ln.startswith(b"@PG")]  # noqa: E731
+    assert strip((tmp_path / "j1.sam").read_bytes()) == strip((tmp_path / "j3.sam").read_bytes())
+    assert len(strip((tmp_path / "j1.sam").read_bytes())) > 48000
+    assert torch.cuda.max_memory_allocated() == allocated == torch.cuda.memory_allocated()
+    assert dict(_kernels.LAUNCHES) == launches

@@ -267,9 +267,8 @@ def test_fastlane_long_runs_match_jax(msa_files, founder_seqs, tmp_path, monkeyp
     [
         ({"data_parallel": 2}, {}),
         ({"fused_kernel": True}, {}),
-        ({"output_bam": True}, {}),
     ],
-    ids=["data-parallel", "fused-kernel", "bam-out"],
+    ids=["data-parallel", "fused-kernel"],
 )
 def test_uncovered_configurations_raise(rich_case, tmp_path, monkeypatch, kw, env):
     index_path, sam, _ = rich_case

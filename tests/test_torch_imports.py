@@ -17,8 +17,9 @@ PORT = REPO / "panvc3_tpu_torch"
 
 # imports every module of the port, runs a small slice of the pipeline
 # (the CLI on a tiny MSA built with the port's own index, with integer and
-# with quality scoring and through the gap kernel, then the object path),
-# then lists any JAX or panvc3_tpu module loaded
+# with quality scoring and through the gap kernel, then the object path,
+# BAM out and back in, and three host tools on that BAM), then lists any
+# JAX or panvc3_tpu module loaded
 _SCRIPT = r"""
 import importlib, os, pkgutil, sys
 import numpy as np
@@ -69,6 +70,25 @@ cfg = ProjectConfig(msa_index_path=f"{work}/msa.npz", reference_path=f"{work}/re
                     fastlane=False, status_output_interval=0)
 stats = run_project_alignments(f"{work}/in.sam", f"{work}/obj.sam", cfg, device="cpu")
 assert stats.matched_reads == 40 and stats.realigned_range_count > 0
+# a BAM round trip on the fast lane, then host tools on the BAM
+common = ["--device", "cpu", "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa", "-d", "REF",
+          "-s", "/", "--status-output-interval", "0"]
+from panvc3_tpu_torch.io.sam import SamReader, SamWriter
+reader = SamReader(f"{work}/in.sam")
+writer = SamWriter(f"{work}/in.bam", reader.header, bam=True)
+for rec in reader:
+    writer.write(rec)
+writer.close()
+assert main(["project_alignments", *common, "-a", f"{work}/in.bam", "-B", "-b", "-o", f"{work}/out.bam"]) == 0
+assert open(f"{work}/out.bam", "rb").read(4) == b"\x1f\x8b\x08\x04"
+assert len(list(SamReader(f"{work}/out.bam"))) == 40
+assert main(["index_msa", "--list-contents", "-d", f"{work}/msa.npz"]) == 0
+assert main(["rewrite_cigar", "-a", f"{work}/out.bam", "-B", "-M", "-b", "-o", f"{work}/m.bam",
+             "--status-output-interval", "0"]) == 0
+assert main(["recalculate_mapq", "-a", f"{work}/m.bam", "-o", f"{work}/mapq.sam", "--jobs", "2",
+             "--status-output-interval", "0"]) == 0
+assert sum(1 for ln in open(f"{work}/mapq.sam") if not ln.startswith("@")) == 40
+assert main(["alignment_statistics", "-a", f"{work}/m.bam", "-O"]) == 0
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
 ref_pkg = sorted(m for m in sys.modules if m == "panvc3_tpu" or m.startswith("panvc3_tpu."))

@@ -130,11 +130,6 @@ def test_sam_round_trip_of_the_rich_fixture(founder_seqs):  # noqa: F811
     assert port_out.getvalue() == ref_out.getvalue()
 
 
-def test_sam_bam_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_sam.SamWriter(io.BytesIO(), port_sam.SamHeader(), bam=True)
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("native", ["1", "0"], ids=["native", "numpy"])
 def test_event_geometry_matches(seed, native, monkeypatch):
