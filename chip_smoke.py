@@ -17,8 +17,10 @@ Phases, in order; any failure raises and exits non-zero:
    48x48 (the aggregate window the main path dispatches, length-sorted),
    16384 runs of random lengths up to 48x48 and 2048 of up to 128x128,
    its substitution entry on 4096 runs of 48x48 with an explicit
-   reference-quality tile, K2's fill on the three shapes of K1's two
-   entries and at the edges of its schedule (every trace cell), and the
+   reference-quality tile, its integer entry also on 4096 full runs of
+   16x16 (the fused engines' slot pool) and 8192 runs of up to 64x64 (the
+   object path's padded 48I48D runs), K2's fill on the three shapes of
+   K1's two entries and at the edges of its schedule (every trace cell), and the
    locked tie-break fixtures (integer ones through K1, quality ones
    through K1's quality entry and through K2 plus the plain
    traceback).  A bound is the larger of the operations the inputs need
@@ -69,9 +71,19 @@ Phases, in order; any failure raises and exits non-zero:
    subset_alignments, rewrite_cigar, alignment_statistics,
    count_supporting_reads and convert_bed_positions on the projected
    output, each with its switch on and, on a sample, =0, and SAM against
-   BAM where the tool writes alignments.  Any inequality raises.
+   BAM where the tool writes alignments.  Any inequality raises;
+9. the fused engines through the CLI with PANVC3_ENGINE_LANE=fused (the
+   object path's fused lane): (a) the first 65,536 reads at the default
+   batch (mostly v4's event overflow to v3, or the host path for 48I48D
+   runs), (b) the 65,536 even-numbered reads (the mixed kinds, whose runs
+   fit 16x16) at --device-batch-size 1024, where v4's own DP must answer
+   and launch K1, (c) (b) under PANVC3_FUSED_EVENT=0 (v3 throughout), (d)
+   (b) under PANVC3_PALLAS_FUSED=0 (K2 and the plain traceback, no K1);
+   each SAM must equal the same records of phase 4's device-lane SAM.  Each
+   row prints its routes, launches, build seconds, the device-to-host probe
+   and what the engine-lane arbiter picks unforced on this host.
 
-Launch counts are set to 0 just before each path of phases 4-8 and read
+Launch counts are set to 0 just before each path of phases 4-9 and read
 just after it.  The kernels' JSON summary and the card's name and power
 limit come before the last line, which is {"ok": true, "device": {...}}.
 Every timing is printed beside the card's name and power limit.
@@ -422,6 +434,17 @@ def phase_kernels(card: str) -> dict:
             card, results, k2_need(m, n, Q, R),
         )
         del sub
+    # K1's integer entry where the fused engines launch it (their slot pool
+    # of 16x16 runs for 8192-record batches) and where the object path and
+    # the fused lane's host path launch it (48I48D runs padded to 64x64)
+    for B, Q, R, full in ((4096, 16, 16, True), (8192, 64, 64, False)):
+        args = random_runs(rng, B, Q, R, full)
+        compare(
+            "realign_fused_int", (B, Q, R, "full" if full else "random"),
+            lambda: realign_fused(*args, 0.0, -1.0, R, Q),
+            lambda: realign_fused_reference(*args, 0.0, -1.0, R, Q),
+            card, results, k1_need(args[2], args[3], Q, R, "int"),
+        )
     B, Q, R = 4096, 48, 48
     args = random_runs(rng, B, Q, R)
     qq = torch.from_numpy(rng.integers(0, 42, (B, Q)).astype(np.int32)).cuda()
@@ -483,7 +506,7 @@ class Tool:
 
     ENV_KEYS = (
         "PANVC3_HOST_DP", "PANVC3_HOST_DP_CELLS", "PANVC3_PALLAS_FUSED",
-        "PANVC3_EVENT_GEOMETRY",
+        "PANVC3_EVENT_GEOMETRY", "PANVC3_ENGINE_LANE", "PANVC3_FUSED_EVENT",
     )
 
     def __init__(self, card: str, work: pathlib.Path, index_path, fasta_path,
@@ -494,7 +517,8 @@ class Tool:
         self.device = device
 
     def run(self, tag: str, env: dict, sam: pathlib.Path, quality: bool = False,
-            fastlane: bool = True, expect: int | None = N_READS, bam: bool = False):
+            fastlane: bool = True, expect: int | None = N_READS, bam: bool = False,
+            batch: int | None = None):
         """(output, wall seconds, launches by entry, aggregate diag) of
         one call, which also prints its reads/s and peak device memory; the
         counts start at 0 here.  ``fastlane=False`` runs the object path
@@ -521,7 +545,9 @@ class Tool:
             "-a", str(sam), "-m", str(self.index_path), "-r", str(self.fasta_path),
             "-d", "REF", "-s", "/", "--msa-index-chr-shard", "0/1",
             "-o", str(out_path), "--status-output-interval", "0",
-        ] + (["-q"] if quality else []) + (["-B", "-b"] if bam else [])
+        ] + (["-q"] if quality else []) + (["-B", "-b"] if bam else []) + (
+            ["--device-batch-size", str(batch)] if batch else []
+        )
         cfg = ProjectConfig(
             msa_index_path=str(self.index_path), reference_path=str(self.fasta_path),
             reference_msa_id="REF", ref_id_separator="/", chr_shard=(0, 1),
@@ -631,6 +657,7 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     )
     phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used)
     phase_tools(tool, seed, rows_tsv, founders, sam_path, q_sam_path, dev_sam, q_dev, used)
+    phase_fused(tool, sam_path, dev_sam, used)
     return used
 
 
@@ -642,6 +669,7 @@ def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used) -> None:
     import torch
 
     from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
+    from panvc3_tpu_torch.synth import head_of
 
     device = {"PANVC3_HOST_DP": "0"}
 
@@ -723,14 +751,121 @@ def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used) -> None:
     )
 
 
-def head_of(sam: bytes, n: int) -> bytes:
-    """The header and the first ``n`` records of SAM text."""
-    lines = sam.split(b"\n")
-    k = next(i for i, ln in enumerate(lines) if ln and not ln.startswith(b"@"))
-    return b"\n".join(lines[:k + n]) + b"\n"
+class TimedBuilds:
+    """Seconds of each device-table build while in use: the host event
+    tables (``EventGeometry``), the device event tables
+    (``DeviceEventGeometry``) and the device gap index
+    (``DeviceGapIndex.build``), each ended by a synchronise on a card."""
+
+    def __init__(self, device: str):
+        self.device = device
+
+    def __enter__(self):
+        from panvc3_tpu_torch.ops import event_geometry as eg
+        from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
+
+        self.seconds: dict[str, float] = {}
+        self._undo = []
+
+        def wrap(owner, attr, key, bound=False):
+            orig = owner.__dict__[attr]
+            fn = orig.__func__ if bound else orig
+
+            def timed(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                if self.device == "cuda":
+                    import torch
+
+                    torch.cuda.synchronize()
+                self.seconds[key] = self.seconds.get(key, 0.0) + time.perf_counter() - t0
+                return out
+
+            setattr(owner, attr, classmethod(timed) if bound else timed)
+            self._undo.append((owner, attr, orig))
+
+        wrap(eg.EventGeometry, "__init__", "host event tables")
+        wrap(eg.DeviceEventGeometry, "__init__", "device event tables")
+        wrap(DeviceGapIndex, "build", "gap index", bound=True)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in self._undo:
+            setattr(owner, attr, orig)
+
+
+def phase_fused(tool, sam_path, dev_sam, used, n_reads: int = N_OBJECT_READS,
+                batch: int = 1024) -> dict:
+    """Phase 9: the fused engines through the CLI (PANVC3_ENGINE_LANE=fused,
+    the object path's fused lane), each row's SAM against the same records
+    of phase 4's device-lane SAM.  (a) the first ``n_reads`` reads at the
+    default batch; (b) ``n_reads`` even-numbered reads (the mixed kinds,
+    whose runs fit 16x16) at ``batch``, where v4's own DP must answer; (c)
+    (b) under PANVC3_FUSED_EVENT=0 (v3 throughout); (d) (b) under
+    PANVC3_PALLAS_FUSED=0 (K2 and the plain traceback).  The rows' K1 and
+    K2 launches join ``used``; returns each row's route counts."""
+    from panvc3_tpu_torch.ops import engine
+    from panvc3_tpu_torch.synth import every_other, head_of
+    from panvc3_tpu_torch.utils import log_peak_memory
+
+    work, card = tool.work, tool.card
+    on_card = tool.device == "cuda"
+    lane = {"PANVC3_HOST_DP": "0", "PANVC3_ENGINE_LANE": "fused"}
+    head = head_sam(sam_path, work / "reads_fused_head.sam", n_reads)
+    even = work / "reads_fused_even.sam"
+    even.write_bytes(every_other(sam_path.read_bytes(), n_reads))
+    want_head = head_of(strip_pg(dev_sam), n_reads)
+    want_even = every_other(strip_pg(dev_sam), n_reads)
+    rows = (
+        ("fused-a-head", lane, head, None, want_head),
+        ("fused-b-even", lane, even, batch, want_even),
+        ("fused-c-v3", {**lane, "PANVC3_FUSED_EVENT": "0"}, even, batch, want_even),
+        ("fused-d-split-route", {**lane, "PANVC3_PALLAS_FUSED": "0"}, even, batch, want_even),
+    )
+    routes = {}
+    for tag, env, src, size, want in rows:
+        with TimedBuilds(tool.device) as builds:
+            got, _, launches, _ = tool.run(
+                tag, env, src, fastlane=True, expect=n_reads, batch=size
+            )
+        routes[tag] = dict(engine.FUSED_ROUTES)
+        if strip_pg(got) != want:
+            raise AssertionError(f"{tag}: SAM differs from the same records of the device lane's")
+        k1, k2 = launches["realign_fused_int"], launches["realign_fill_sub"]
+        r = routes[tag]
+        if sum(r.values()) == 0:
+            raise AssertionError(f"{tag}: the fused lane answered no batch")
+        if tag == "fused-b-even" and (r["v4_dp"] < 1 or (on_card and k1 < r["v4_dp"])):
+            raise AssertionError(f"{tag}: v4 answered {r['v4_dp']} batches by its own DP, K1 {k1}")
+        if tag == "fused-c-v3" and (r["v4_dp"] or r["v4_to_v3"] or r["v3"] < 1):
+            raise AssertionError(f"{tag}: not v3 throughout: {r}")
+        if tag == "fused-d-split-route" and on_card and (k2 < 1 or k1):
+            raise AssertionError(f"{tag}: K2 launched {k2} times, K1 {k1}")
+        if on_card and tag != "fused-d-split-route" and k1 < 1:
+            raise AssertionError(f"{tag}: K1 was not launched")
+        used["realign_fused_int"] += k1
+        used["realign_fill_sub"] += k2
+        os.environ.pop("PANVC3_ENGINE_LANE")
+        mbps = engine.probe_d2h_mbps(tool.device)
+        unforced = engine.choose_engine_lane(tool.device)
+        log(
+            f"[fused] {tag}: routes {json.dumps(r)}; K1 {k1}, K2 {k2} launches; builds "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in builds.seconds.items())
+            + f"; device-to-host {mbps:.0f} MB/s (probe_d2h_mbps); the arbiter picks "
+            f"{unforced!r} unforced on this host ({len(os.sched_getaffinity(0))} cores) ({card})"
+        )
+    sys.stdout.write("[fused] host ")
+    log_peak_memory(file=sys.stdout)
+    log(
+        f"[fused] rows a-d: SAM == the same records of the device-lane SAM "
+        f"({n_reads} records each, @PG stripped)"
+    )
+    return routes
 
 
 def head_sam(src: pathlib.Path, dst: pathlib.Path, n: int) -> pathlib.Path:
+    from panvc3_tpu_torch.synth import head_of
+
     dst.write_bytes(head_of(src.read_bytes(), n))
     return dst
 
@@ -898,7 +1033,7 @@ def phase_tools(tool, seed, rows_tsv, founders, sam_path, q_sam_path, dev_sam, q
     if on_card and launches["realign_fused_int"] <= 0:
         raise AssertionError("the object path's BAM run did not launch K1's integer entry")
     used["realign_fused_int"] += launches["realign_fused_int"]
-    if got != body(head_of(dev_sam, n_obj)):
+    if got != body(synth.head_of(dev_sam, n_obj)):
         raise AssertionError("object path BAM: records differ from the device-lane SAM")
     log(
         f"[tools] project_alignments -B -b: device lane integer and -q == the SAM runs "
@@ -1227,7 +1362,8 @@ def main() -> int:
     launches["realign_fused_sub"] = phase_batch(card, args.seed)
 
     # each entry at the main path's shape: the window of 48x48 runs (K1's
-    # and the split route's), the substitution entry's realign_batch call
+    # and the split route's), the substitution entry's realign_batch call;
+    # phase 3's log lines give K1's fused-engine and object-path shapes
     entries = []
     for entry, source, replaces, shape in (
         ("realign_fused_int", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48, "full")),

@@ -1,13 +1,23 @@
 """The batched projection engine: device rewrite + device realignment.
 
-Counterpart of ``panvc3_tpu.ops.engine.BatchProjector`` minus the fused
-engines (ROADMAP Queue 1 item 6).  A batch of SAM records is expanded on
-the host (``expand_cigars``), the gap kernel runs on the projector's
-device over the device gap index (``.index``, built on first use), the
-host compares characters and finalizes the rewritten CIGARs and their
-indel runs (the C extension), the runs are realigned on the device
-(``realign_batch_start``: K1, or the host C DP for small batches), and the
-results are spliced into per-record ``ProjectionResult``s.  The fast lane
+Counterpart of ``panvc3_tpu.ops.engine``.  A batch of SAM records is
+expanded on the host (``expand_cigars``) and runs on the projector's
+device by one of two lanes:
+
+- the split lane: the gap kernel over the device gap index (``.index``,
+  built on first use), the host =/X comparison and C finalize of the
+  rewritten CIGARs and their indel runs, the runs realigned on the device
+  (``realign_batch_start``: K1, or the host C DP for small batches), and
+  the splice into per-record ``ProjectionResult``s;
+- the fused lane (``cfg.fused_kernel``, integer scoring): one dispatch of
+  the v4 engine (``ops/fused_event.py``: event-geometry rewrite, run
+  detection and the DP; its geometry built on first use), whose event
+  overflow re-dispatches the batch through the v3 engine
+  (``ops/fused.py``, over the gap index) and whose run-pool or length
+  overflow realigns on the split lane's host path; ``FUSED_ROUTES`` counts
+  which route answered each batch.
+
+``choose_engine_lane`` picks the lane for a run.  The fast lane
 (``pipeline/fastlane.run_fast``) uses only the device sequence ids, the
 realignment timer and the flat reference of this object.
 
@@ -17,6 +27,7 @@ give the same batches.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -45,6 +56,110 @@ def next_pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
+
+
+#: Batches of the fused lane by the route that answered them: ``v4_dp``, v4
+#: batches whose own DP result was used; ``v4_to_v3``, v4 batches
+#: re-dispatched through v3 on event overflow; ``v3``, v3 batches (those
+#: included); ``host_realign``, batches realigned on the host path (run
+#: pool or length overflow, or a run mismatch).  ``run_project_alignments``
+#: resets it.
+FUSED_ROUTES = {"v4_dp": 0, "v4_to_v3": 0, "v3": 0, "host_realign": 0}
+_ROUTES_LOCK = threading.Lock()
+
+
+def _route(name: str) -> None:
+    with _ROUTES_LOCK:
+        FUSED_ROUTES[name] += 1
+
+
+def reset_fused_routes() -> None:
+    with _ROUTES_LOCK:
+        for key in FUSED_ROUTES:
+            FUSED_ROUTES[key] = 0
+
+
+def probe_d2h_mbps(device, size: int = 1 << 22) -> float:
+    """Measured device-to-host rate (MB/s) of ``device``, round-trip time
+    compensated.
+
+    Three stages, so that no link overpays or is under-measured: 16 KB
+    first (a degraded link costs a fraction of a second, not tens); 256 KB
+    next, whose difference from the small fetch says whether the link is
+    plainly slow; 4 MB last, the measurement that decides (at the 200 MB/s
+    threshold its ~3.75 MB difference takes ~19 ms, well above timing
+    jitter).  A difference that is not positive cannot be measured and
+    reads 0.0, so the arbiter picks 'split'.  Each timed fetch copies a
+    fresh tensor, computed on the device from a varying operand, into
+    pinned host memory."""
+    dev = torch.device(device)
+
+    def fetch_seconds(base, salt):
+        y = base + salt
+        host = torch.empty(base.shape, dtype=base.dtype, pin_memory=dev.type == "cuda")
+        t0 = time.perf_counter()
+        host.copy_(y)  # waits for y, then copies: one round trip, compensated below
+        return time.perf_counter() - t0
+
+    small_n = 1 << 14
+    small = torch.zeros(small_n, dtype=torch.uint8, device=dev)
+    fetch_seconds(small, 1)  # warm
+    t_small = min(fetch_seconds(small, 2), fetch_seconds(small, 3))
+    # a small fetch is round-trip dominated on any link, so it can only
+    # detect the pathological case
+    if t_small > 1.0:
+        return small_n / t_small / 1e6
+
+    def differential_mbps(n_lo, t_lo, n_hi):
+        arr = torch.zeros(n_hi, dtype=torch.uint8, device=dev)
+        fetch_seconds(arr, 1)
+        t_hi = min(fetch_seconds(arr, 2), fetch_seconds(arr, 3))
+        # (n_hi - n_lo) more bytes took (t_hi - t_lo) more seconds: round
+        # trip and dispatch cancel
+        if t_hi <= t_lo:
+            return 0.0, t_hi
+        return (n_hi - n_lo) / (t_hi - t_lo) / 1e6, t_hi
+
+    mid_n = 1 << 18
+    mid_mbps, t_mid = differential_mbps(small_n, t_small, mid_n)
+    # skip the big fetch only on absolute evidence of a slow link (256 KB in
+    # more than 0.25 s)
+    if t_mid > 0.25:
+        return mid_mbps
+    big_mbps, _ = differential_mbps(mid_n, t_mid, max(size, mid_n * 2))
+    return big_mbps
+
+
+def choose_engine_lane(
+    device, host_cores: int | None = None, d2h_mbps: float | None = None
+) -> str:
+    """'split' (the fast lane and host finalize) or 'fused' (the v4 engine,
+    one dispatch per batch) for a run on ``device``.
+
+    The split lane wins wherever the host has cores to feed it; the fused
+    engine where host CPU is scarce and the device-to-host leg is healthy,
+    since it fetches its wire outputs every batch.  The probe runs only
+    when the core count does not decide.  ``PANVC3_ENGINE_LANE=fused|split``
+    forces; a device other than CUDA gets 'split'.  The thresholds (3
+    cores, 200 MB/s) are the JAX package's, set on its TPU host, and no
+    CUDA host measurement backs the unforced 'fused' pick: on an H100 host
+    with 8 cores the fused lane reads 15-30x fewer reads/s than the split
+    lane (PERF.md), and where it would win is not measured."""
+    forced = os.environ.get("PANVC3_ENGINE_LANE")
+    if forced in ("split", "fused"):
+        return forced
+    if torch.device(device).type != "cuda":
+        return "split"
+    if host_cores is None:
+        try:
+            host_cores = len(os.sched_getaffinity(0))
+        except AttributeError:
+            host_cores = os.cpu_count() or 4
+    if host_cores >= 3:
+        return "split"
+    if d2h_mbps is None:
+        d2h_mbps = probe_d2h_mbps(device)
+    return "fused" if d2h_mbps >= 200.0 else "split"
 
 
 class BatchProjector:
@@ -80,10 +195,15 @@ class BatchProjector:
         self.src_dev_ids = [dev_id(e) if e is not None else -1 for e in src_entries]
         self.dst_dev_ids = [dev_id(e) if e is not None else -1 for e in dst_entries]
         # the gap index costs O(columns) build time and memory; only the gap
-        # kernel (the object path, PANVC3_EVENT_GEOMETRY=0) reads it
+        # kernel (the split lane of the object path, the fast lane's
+        # PANVC3_EVENT_GEOMETRY=0) and the v3 engine read it
         self._vectors = vectors
         self._index = None
-        self._index_lock = threading.Lock()
+        # the fused v4 engine's event geometry, built on the first fused
+        # batch from these entries (the fast lane builds its own)
+        self._entries = (src_entries, dst_entries)
+        self._fused_event_kernel = None
+        self._index_lock = threading.Lock()  # guards both lazy builds
 
         # The lock pairs _ensure_refs (main thread, streams contigs in)
         # with ref_flat_snapshot (the drain thread reads a consistent
@@ -113,6 +233,8 @@ class BatchProjector:
             if state.get("index") is not None
             else None
         )
+        bp._entries = None
+        bp._fused_event_kernel = None
         bp._index_lock = threading.Lock()
         bp._ref_lock = threading.Lock()
         bp._ref_flat = None
@@ -142,6 +264,26 @@ class BatchProjector:
             if self._index is None:
                 self._index = DeviceGapIndex.build(self._vectors, device=self.device)
             return self._index
+
+    @property
+    def fused_event_kernel(self):
+        """The v4 engine bound to the device event geometry of this
+        projector's entries, built on first use."""
+        with self._index_lock:
+            if self._fused_event_kernel is None:
+                from .event_geometry import DeviceEventGeometry, EventGeometry
+                from .fused_event import make_fused_event_kernel
+
+                if self._entries is None:
+                    raise RuntimeError(
+                        "a projector rebuilt from numpy state has no sequence "
+                        "entries for the fused engine's event geometry"
+                    )
+                host_geo = EventGeometry(*self._entries, self.ref_id_mapping)
+                self._fused_event_kernel = make_fused_event_kernel(
+                    DeviceEventGeometry(host_geo, self.device)
+                )
+            return self._fused_event_kernel
 
     def _ensure_refs(self, ref_seqs: dict[int, bytes]) -> None:
         with self._ref_lock:
@@ -188,14 +330,16 @@ class BatchProjector:
 
     # -- the batch pipeline: start_batch -> finish_rewrite -> finish_realign
 
+    #: run pad of the fused engines' DP (longer runs realign on the host
+    #: path)
+    FUSED_RUN_PAD = 16
+
     def start_batch(self, records, ref_seqs: dict[int, bytes], cfg):
-        """Stage a batch and launch its gap kernel on the device; the
-        outputs head for pinned host memory at once.  Returns an opaque
-        handle for :meth:`finish_batch` (None for no records)."""
-        if getattr(cfg, "fused_kernel", False):
-            raise NotImplementedError(
-                "the fused engines (--fused-kernel) are ROADMAP Queue 1 item 6"
-            )
+        """Stage a batch and launch its device work: the fused engine where
+        ``cfg.fused_kernel`` asks and the batch passes its gates, else the
+        gap kernel.  The outputs head for pinned host memory at once and no
+        flag is read here.  Returns an opaque handle for
+        :meth:`finish_batch` (None for no records)."""
         self._ensure_refs(ref_seqs)
         if not records:
             return None
@@ -222,12 +366,45 @@ class BatchProjector:
             pad_ref_units=max(2, next_pow2(max_ref_units)),
             pad_query=max(2, next_pow2(max_q)),
         )
+        b = len(records)
+        use_fused = (
+            bool(getattr(cfg, "fused_kernel", False))
+            and not getattr(cfg, "use_read_base_qualities", False)
+            and get_native() is not None
+        )
+        if use_fused:
+            # v4 is the default fused engine: its u8 wire needs R <= 255,
+            # its boundary-rank matrix is O(ops**2) per record, and its
+            # compaction packs record ids and query coordinates into 16-bit
+            # fields; v3 takes the rest and PANVC3_FUSED_EVENT=0
+            use_event = (
+                batch.pad_ref_units <= 255
+                and batch.ops.shape[1] <= 32
+                and b < 65536
+                and batch.query.shape[1] < 65536
+                and os.environ.get("PANVC3_FUSED_EVENT") != "0"
+            )
+            if use_event:
+                out = self.fused_event_kernel(
+                    self.ref_flat_dev,
+                    np.asarray([rec.ref_id for rec in records], dtype=np.int32),
+                    batch.rec_src_pos, batch.n_ref_units, batch.ref_off,
+                    batch.ops, batch.counts, batch.query,
+                    np.float32(self.gap_opening_cost), np.float32(self.gap_extension_cost),
+                    R=batch.pad_ref_units, run_r=self.FUSED_RUN_PAD,
+                    run_q=self.FUSED_RUN_PAD, slot_pool=max(256, b // 2),
+                )
+                return ("fusedev", records, queries, dst_ref_ids, batch, DeviceFetch(*out),
+                        ref_seqs, cfg, self._ref_flat_host)
+            return ("fused", records, queries, dst_ref_ids, batch,
+                    self._dispatch_fused_gap(batch, b), ref_seqs, cfg)
+
         # the gap kernel reads four arrays per record
         kernel_inputs = [batch.src_seq, batch.dst_seq, batch.rec_src_pos, batch.n_ref_units]
         # bucket the batch dimension: pad to the configured batch size, or
         # the next power of two below it, with copies of the first row
-        # (their results are sliced off)
-        b = len(records)
+        # (their results are sliced off); the fused engines keep the exact
+        # size, as their run detection would count the padding's runs
         target = int(getattr(cfg, "device_batch_size", 0)) or b
         n_pad = max(0, min(target, next_pow2(b)) - b)
         if n_pad:
@@ -251,23 +428,18 @@ class BatchProjector:
         :meth:`finish_realign`."""
         if handle is None:
             return None
+        if handle[0] == "fused":
+            return ("fused_done", self._finish_fused(handle))
+        if handle[0] == "fusedev":
+            return ("fused_done", self._finish_fused_event(handle))
         (_, records, queries, dst_ref_ids, batch, (fetch, d_run_full), ref_seqs,
          cfg, n_pad, ref_flat_host) = handle
         b = len(records)
-        R = batch.pad_ref_units
-        dst_pos_a, d_run, isgap = fetch_gap_outputs([*fetch.get(), d_run_full], R)
+        wire = fetch_gap_outputs([*fetch.get(), d_run_full], batch.pad_ref_units)
         if n_pad:
-            dst_pos_a, d_run, isgap = dst_pos_a[:b], d_run[:b], isgap[:b]
-        ref_lens = np.fromiter(
-            (len(ref_seqs[r]) for r in dst_ref_ids), dtype=np.int64, count=b
-        )
-        main_code = reconstruct_main_code(
-            batch.unit_op, batch.unit_count, batch.unit_rec, b, R,
-            dst_pos_a.astype(np.int32), d_run, isgap, np.asarray(batch.query),
-            ref_flat_host, batch.ref_off, ref_lens,
-        )
-        dst_pos, rewritten, record_runs = self._finalize_any(
-            batch, dst_pos_a, d_run, main_code, b
+            wire = tuple(a[:b] for a in wire)
+        dst_pos, rewritten, record_runs = self._finalize_wire(
+            batch, wire, ref_seqs, dst_ref_ids, ref_flat_host
         )
         t0 = time.perf_counter_ns()
         rh = self._dispatch_realign(records, queries, dst_ref_ids, ref_seqs, cfg, record_runs)
@@ -278,6 +450,8 @@ class BatchProjector:
         """Stage 3: fetch the realignment results and splice."""
         if handle2 is None:
             return []
+        if handle2[0] == "fused_done":
+            return handle2[1]
         _, records, dst_pos, rewritten, record_runs, rh = handle2
         t0 = time.perf_counter_ns()
         realigned = realign_batch_finish(rh)
@@ -287,6 +461,15 @@ class BatchProjector:
     def project_batch(self, records, ref_seqs: dict[int, bytes], cfg) -> list[ProjectionResult]:
         """Synchronous convenience wrapper around start/finish."""
         return self.finish_batch(self.start_batch(records, ref_seqs, cfg))
+
+    def _realign_and_splice(
+        self, records, queries, dst_ref_ids, ref_seqs, cfg, dst_pos, rewritten, record_runs,
+    ) -> list[ProjectionResult]:
+        """The fused lane's host path: realign the host-detected runs as the
+        split lane does, then splice."""
+        rh = self._dispatch_realign(records, queries, dst_ref_ids, ref_seqs, cfg, record_runs)
+        realigned = realign_batch_finish(rh)
+        return self._splice(records, dst_pos, rewritten, record_runs, realigned)
 
     def _dispatch_realign(self, records, queries, dst_ref_ids, ref_seqs, cfg, record_runs):
         """Stage the indel runs and dispatch the batched realignment on the
@@ -328,6 +511,101 @@ class BatchProjector:
             pad_query=next_pow2(max(1, max(len(q) for q in run_queries))),
             device=self.device,
         )
+
+    def _dispatch_fused_gap(self, batch, n_records: int):
+        """Launch the v3 engine on a staged batch: (the fetch of its first
+        six outputs, its full d_run on the device, fetched only when a
+        deletion run reached 255)."""
+        from .fused import fused_projection_kernel
+
+        out = fused_projection_kernel(
+            self.index, self.ref_flat_dev,
+            batch.src_seq, batch.dst_seq, batch.rec_src_pos, batch.ref_off,
+            batch.ops, batch.counts, batch.query,
+            np.float32(self.gap_opening_cost), np.float32(self.gap_extension_cost),
+            batch.pad_ref_units, batch.pad_ref_units + batch.ops.shape[1],
+            self.FUSED_RUN_PAD, self.FUSED_RUN_PAD, max(256, n_records // 2),
+        )
+        return DeviceFetch(*out[:6]), out[6]
+
+    def _finish_fused(self, handle) -> list[ProjectionResult]:
+        """Finish a v3 batch: the host finalize from its wire, then its
+        realigned runs, or the host path on overflow or a run mismatch."""
+        _, records, queries, dst_ref_ids, batch, (fetch, d_run_dev), ref_seqs, cfg = handle
+        _route("v3")
+        b = len(records)
+        dst_pos_a, d8, main_code, realign_ops, realign_counts, flags = fetch.get()
+        d_run = d_run_dev.cpu().numpy() if int(flags[1]) else d8.astype(np.int32)
+        dst_pos, rewritten, record_runs = self._finalize_any(batch, dst_pos_a, d_run, main_code, b)
+        total_runs = int(flags[2])
+        if int(flags[0]) or total_runs != sum(len(r) for r in record_runs):
+            # run pool, run length or d_run packing overflowed, or device
+            # and host run detection disagree: the host runs are right
+            _route("host_realign")
+            return self._realign_and_splice(
+                records, queries, dst_ref_ids, ref_seqs, cfg, dst_pos, rewritten, record_runs,
+            )
+        realigned = realign_batch_finish((realign_ops[:total_runs], realign_counts[:total_runs]))
+        return self._splice(records, dst_pos, rewritten, record_runs, realigned)
+
+    def _finish_fused_event(self, handle) -> list[ProjectionResult]:
+        """Finish a v4 batch: the host =/X reconstruction from its event
+        wire, then the device-realigned runs matched one to one."""
+        (_, records, queries, dst_ref_ids, batch, fetch, ref_seqs, cfg, ref_flat_host) = handle
+        b = len(records)
+        (dst_pos_a, gapbits, d_vals, d_pos, d_n, realign_ops, realign_counts,
+         flags) = fetch.get()
+        if int(flags[1]):
+            # event slots or widths overflowed: the rewrite outputs are
+            # invalid, so the batch goes through v3
+            _route("v4_to_v3")
+            return self._finish_fused(
+                ("fused", records, queries, dst_ref_ids, batch,
+                 self._dispatch_fused_gap(batch, b), ref_seqs, cfg)
+            )
+        dst_pos, rewritten, record_runs = self._finalize_wire(
+            batch, fetch_gap_outputs([dst_pos_a, gapbits, d_vals, d_pos, d_n, 0], batch.pad_ref_units),
+            ref_seqs, dst_ref_ids, ref_flat_host,
+        )
+        total_runs = int(flags[2])
+        host_path = int(flags[0]) or total_runs != sum(len(r) for r in record_runs)
+        if not host_path:
+            realigned = realign_batch_finish((realign_ops[:total_runs], realign_counts[:total_runs]))
+            # the DP took the device-detected slice lengths, so each
+            # realigned CIGAR must consume what the host-detected run it
+            # replaces spans (a run count alone passes when coordinates
+            # shifted); runs are compacted in (record, CIGAR) order, the
+            # host's flattened order
+            flat_runs = [r for runs in record_runs for r in runs]
+            for run, cig in zip(flat_runs, realigned):
+                qc = sum(c for c, op in cig if op != "D")
+                rc = sum(c for c, op in cig if op != "I")
+                if qc != run.query_length or rc != run.ref_length:
+                    host_path = True
+                    break
+        if host_path:
+            _route("host_realign")
+            return self._realign_and_splice(
+                records, queries, dst_ref_ids, ref_seqs, cfg, dst_pos, rewritten, record_runs,
+            )
+        _route("v4_dp")
+        return self._splice(records, dst_pos, rewritten, record_runs, realigned)
+
+    def _finalize_wire(self, batch, wire, ref_seqs, dst_ref_ids, ref_flat_host):
+        """The host half of a gap-geometry wire ``(dst_pos, d_run,
+        isgap)``: =/X rebuilt from the query and reference bytes, then the
+        finalize.  Returns (dst_pos, rewritten CIGARs, indel runs)."""
+        dst_pos_a, d_run, isgap = wire
+        b = len(dst_ref_ids)
+        ref_lens = np.fromiter(
+            (len(ref_seqs[r]) for r in dst_ref_ids), dtype=np.int64, count=b
+        )
+        main_code = reconstruct_main_code(
+            batch.unit_op, batch.unit_count, batch.unit_rec, b, batch.pad_ref_units,
+            dst_pos_a.astype(np.int32), d_run, isgap, np.asarray(batch.query),
+            ref_flat_host, batch.ref_off, ref_lens,
+        )
+        return self._finalize_any(batch, dst_pos_a, d_run, main_code, b)
 
     def _finalize_any(self, batch, dst_pos_a, d_run, main_code, b):
         """The C finalize; where no C extension is loaded (the port always

@@ -576,7 +576,9 @@ def unpack_gap_wire(wire: np.ndarray, R: int):
 
 def fetch_gap_outputs(out, R: int):
     """(dst_pos, d_run int32[B, R], isgap uint8[B, R]) from the packed gap
-    kernel; fetches the full deletion-run array only on overflow."""
+    kernel (or the v4 fused engine's wire, whose sparse deletion slots are
+    its effective width); fetches the full deletion-run array only on
+    overflow."""
     dst_pos, gapbits, d_vals, d_pos, d_n, overflow = (_host(t) for t in out[:6])
     b = dst_pos.shape[0]
     isgap = np.unpackbits(gapbits, axis=1, bitorder="little", count=R)
@@ -584,7 +586,7 @@ def fetch_gap_outputs(out, R: int):
         d_run = _host(out[6])
     else:
         d_run = np.zeros((b, R), dtype=np.int32)
-        k = np.arange(D_SPARSE_SLOTS)[None, :]
+        k = np.arange(d_vals.shape[1])[None, :]
         valid = k < d_n[:, None]
         rows = np.broadcast_to(np.arange(b)[:, None], valid.shape)[valid]
         d_run[rows, d_pos[valid].astype(np.int64)] = d_vals[valid]

@@ -384,10 +384,6 @@ _ADAPT = LaneController()
 def check_covered(cfg) -> None:
     """Raise NotImplementedError for a configuration the port's device
     engine does not run; nothing falls through to another path."""
-    if cfg.fused_kernel:
-        raise NotImplementedError(
-            "the fused engines (--fused-kernel) are ROADMAP Queue 1 item 6"
-        )
     if cfg.data_parallel:
         raise NotImplementedError(
             "--data-parallel (multi-GPU) is ROADMAP Queue 1 item 7"

@@ -12,7 +12,9 @@ to OA, original RNAME/POS/RNEXT/PNEXT to XR/XP/YR/YP, realigned ranges to
 XB/YB).  ``engine="device"`` runs on an explicit ``torch.device``: the
 port's fast lane (``pipeline/fastlane.run_fast``) where
 ``fastlane_eligible`` allows, else the object path, which projects parsed
-records in batches through ``ops.engine.BatchProjector``;
+records in batches through ``ops.engine.BatchProjector`` (on its fused
+lane when ``cfg.fused_kernel`` is set, by the caller or by the engine-lane
+arbiter ``choose_engine_lane``);
 ``engine="host"`` runs the scalar host oracle (``projector``) record by
 record.  Configurations the port does not cover raise
 NotImplementedError.
@@ -22,6 +24,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import json
+import os
 import queue
 import sys
 import threading
@@ -95,7 +100,8 @@ class ProjectConfig:
     chr_shard: tuple[int, int] | None = None
     # data-parallel sharding over several devices (not ported: raises)
     data_parallel: int = 0
-    # the single-dispatch fused engines (not ported: raises)
+    # the single-dispatch fused engines (ops/fused_event.py, ops/fused.py);
+    # set by the engine-lane arbiter (PANVC3_ENGINE_LANE=fused forces it)
     fused_kernel: bool = False
     # native batch fast lane (pipeline/fastlane.py): raw SAM lines are
     # parsed/staged/spliced/formatted in C.  False takes the object path
@@ -478,9 +484,28 @@ def run_project_alignments(
     )
 
     if cfg.engine == "device":
-        from ..ops.engine import BatchProjector
+        from ..native import get_native
+        from ..ops.engine import (
+            FUSED_ROUTES,
+            BatchProjector,
+            choose_engine_lane,
+            reset_fused_routes,
+        )
         from .fastlane import fastlane_eligible, run_fast
 
+        # the engine-lane arbiter: the fused engine where host CPU is scarce
+        # and the device-to-host leg is healthy, else the split fast lane.
+        # Not consulted under -q or without the C extension (the fused
+        # engine gates itself off there), nor when the caller chose.
+        if (
+            not cfg.fused_kernel
+            and not cfg.use_read_base_qualities
+            and get_native() is not None
+            and os.environ.get("PANVC3_ENGINE_AUTO", "1") != "0"
+            and choose_engine_lane(dev) == "fused"
+        ):
+            cfg = dataclasses.replace(cfg, fused_kernel=True)
+        reset_fused_routes()
         batch_engine = BatchProjector(
             src_entries,
             dst_entries,
@@ -501,6 +526,8 @@ def run_project_alignments(
                 src_entries, dst_entries, ref_id_mapping, ref_seqs,
                 realigned_ranges,
             )
+            if cfg.fused_kernel and os.environ.get("PANVC3_FASTLANE_PROF") == "1":
+                log_time("[fused routes] " + json.dumps(FUSED_ROUTES))
         stats.realignment_time_ns += batch_engine.realignment_time_ns
     else:
         _run_host(

@@ -12,7 +12,9 @@ constant quality string or, for quality-scored (``-q``) runs, phreds
 drawn from the seed.  For the tools after projection: read pairs aligned
 to every founder with ``AS:i`` tags (QNAME-grouped, what
 ``recalculate_mapq`` takes once they are projected), a diploid
-single-sample VCF over the reference row, and BED intervals.
+single-sample VCF over the reference row, and BED intervals.  For the
+workflow driver: verbatim founder reads of the bundled toy data
+(``workflow_reads_sam``).
 """
 
 from __future__ import annotations
@@ -190,3 +192,44 @@ def bed_intervals(chr_id: str, length: int, n_intervals: int, seed: int) -> byte
     starts = np.sort(rng.integers(0, length - 501, n_intervals))
     ends = starts + rng.integers(1, 501, n_intervals)
     return "".join(f"{chr_id}\t{a}\t{b}\n" for a, b in zip(starts.tolist(), ends.tolist())).encode()
+
+
+def workflow_reads_sam(founder_seqs: dict[str, bytes], n_reads: int = 200,
+                       read_len: int = 100, seed: int = 42) -> str:
+    """Reads sampled verbatim from founder sequences (aligned rows of the
+    chromosome ``test``), aligned with all-= CIGARs against the
+    gap-stripped founders (a copy of ``tests/test_workflow_data.py``'s
+    ``_synthesise_sam``, which the JAX package's workflow driver uses)."""
+    rng = np.random.default_rng(seed)
+    lines = ["@HD\tVN:1.6"]
+    stripped = {sid: s.replace(b"-", b"") for sid, s in founder_seqs.items()}
+    for sid, s in stripped.items():
+        lines.append(f"@SQ\tSN:test/{sid}\tLN:{len(s)}")
+    names = list(stripped)
+    for i in range(n_reads):
+        sid = names[rng.integers(len(names))]
+        s = stripped[sid]
+        pos = int(rng.integers(0, len(s) - read_len))
+        seq = s[pos:pos + read_len].decode()
+        lines.append(
+            f"read{i}\t0\ttest/{sid}\t{pos + 1}\t60\t{read_len}=\t*\t0\t0\t{seq}\t{'I' * read_len}\tNM:i:0\tXD:i:7"
+        )
+    return "\n".join(lines) + "\n"
+
+
+def head_of(sam: bytes, n: int) -> bytes:
+    """The header and the first ``n`` records of SAM text."""
+    lines = sam.split(b"\n")
+    k = next(i for i, ln in enumerate(lines) if ln and not ln.startswith(b"@"))
+    return b"\n".join(lines[:k + n]) + b"\n"
+
+
+def every_other(sam: bytes, n: int) -> bytes:
+    """The header and the even-numbered records (0, 2, ...) of SAM text,
+    ``n`` of them."""
+    lines = sam.split(b"\n")
+    k = next(i for i, ln in enumerate(lines) if ln and not ln.startswith(b"@"))
+    recs = [ln for ln in lines[k:] if ln][:2 * n:2]
+    if len(recs) != n:
+        raise ValueError(f"every_other: {len(recs)} even records, not {n}")
+    return b"\n".join(lines[:k] + recs) + b"\n"

@@ -3,6 +3,7 @@ of ``panvc3_tpu.utils``, trimmed to what the port calls)."""
 
 from __future__ import annotations
 
+import resource
 import sys
 import time
 
@@ -62,3 +63,11 @@ class StatusReporter:
         if n_processed and elapsed > 0:
             msg += f" ({n_processed / elapsed:.0f} {self.what}/s)"
         log_time(msg + ".")
+
+
+def log_peak_memory(file=sys.stderr) -> int:
+    """Log and return the process's peak resident set size in bytes (the
+    role of libbio's log_memory_usage)."""
+    kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    print(f"Peak RSS: {kb / 1024:.1f} MiB", file=file, flush=True)
+    return kb * 1024

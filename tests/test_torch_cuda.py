@@ -452,3 +452,91 @@ def test_recalculate_mapq_spawns_beside_a_cuda_context(cuda, tmp_path):
     assert len(strip((tmp_path / "j1.sam").read_bytes())) > 48000
     assert torch.cuda.max_memory_allocated() == allocated == torch.cuda.memory_allocated()
     assert dict(_kernels.LAUNCHES) == launches
+
+
+# -- the fused engines (v4, v3) and projection_step: plain PyTorch around K1
+# and K2, the same function on the card as on the CPU
+
+
+@pytest.mark.parametrize(
+    "fused_event,pallas_fused,entry,route",
+    [
+        ("1", "1", "realign_fused_int", "v4_dp"),
+        ("0", "1", "realign_fused_int", "v3"),
+        ("1", "0", "realign_fill_sub", "v4_dp"),
+    ],
+    ids=["v4", "v3", "v4-split-route"],
+)
+def test_fused_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch, fused_event, pallas_fused, entry, route):
+    """The fused lane (PANVC3_ENGINE_LANE=fused: the object path through
+    the v4 engine, or v3 under PANVC3_FUSED_EVENT=0), card vs CPU, on the
+    mixed reads, whose runs fit the engines' 16x16 DP; K1 launches, or K2
+    under PANVC3_PALLAS_FUSED=0."""
+    from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.ops import _kernels, engine
+    from panvc3_tpu_torch.pipeline.project_alignments import (
+        ProjectConfig,
+        run_project_alignments,
+    )
+
+    rows = synth.make_msa(300_000, seed=5)
+    index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
+    sam = synth.every_other(synth.reads_sam("c1", founders, 6000, seed=6), 3000)
+    for key, val in (("PANVC3_HOST_DP", "0"), ("PANVC3_ENGINE_LANE", "fused"),
+                     ("PANVC3_FUSED_EVENT", fused_event), ("PANVC3_PALLAS_FUSED", pallas_fused)):
+        monkeypatch.setenv(key, val)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = ProjectConfig(
+            msa_index_path=str(index_path), reference_path=str(fasta_path),
+            reference_msa_id="REF", ref_id_separator="/", engine="device",
+            device_batch_size=512, status_output_interval=0,
+        )
+        before = dict(_kernels.LAUNCHES)
+        out = io.BytesIO()
+        run_project_alignments(io.BytesIO(sam), out, cfg, device=dev)
+        outs[dev] = out.getvalue()
+        launched = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()}
+        assert engine.FUSED_ROUTES[route] > 0, engine.FUSED_ROUTES
+        if dev == "cuda":
+            assert {k for k, v in launched.items() if v} == {entry}, launched
+        else:
+            assert not any(launched.values()), launched
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_projection_step_on_card_matches_cpu(cuda):
+    """projection_step: the rewrite math over the device gap index and K2
+    plus the plain traceback, card vs CPU."""
+    from panvc3_tpu_torch.bitvec import GapBitVector
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.ops.forward import projection_step
+    from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
+    from panvc3_tpu_torch.ops.rewrite_batch import expand_cigars
+
+    rng = np.random.default_rng(13)
+    vectors = [GapBitVector.from_gap_string(_gap_rows(rng, 5000, 0.03)) for _ in range(2)]
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    B, run_r, run_q = 2048, 24, 16
+    cigars = [[(20, "="), (int(rng.integers(1, 5)), "I"), (int(rng.integers(1, 5)), "D"), (30, "=")]
+              for _ in range(B)]
+    queries = [rng.choice(letters, sum(n for n, op in c if op in "=I")).tobytes() for c in cigars]
+    batch = expand_cigars(cigars, rng.integers(0, 4000, B).tolist(), queries, [0] * B, [1] * B,
+                          [0] * B, pad_ops=4, pad_ref_units=64, pad_query=64)
+    ref_flat = rng.choice(letters, vectors[1].n_zeros).astype(np.uint8)
+    run_ref = rng.choice(letters, (B, run_r)).astype(np.uint8)
+    run_query = rng.choice(letters, (B, run_q)).astype(np.uint8)
+    rl = rng.integers(0, run_r + 1, B).astype(np.int32)
+    ql = rng.integers(0, run_q + 1, B).astype(np.int32)
+    out = {}
+    for d in ("cpu", cuda):
+        index = DeviceGapIndex.build(vectors, device=d)
+        before = _kernels.LAUNCHES["realign_fill_sub"]
+        out[d] = [t.cpu() for t in projection_step(
+            index, ref_flat, batch.src_seq, batch.dst_seq, batch.rec_src_pos, batch.ref_off,
+            batch.ops, batch.counts, batch.query, run_ref, run_query, rl, ql,
+            np.float32(-6), np.float32(-1), R=64, run_r=run_r, run_q=run_q,
+        )]
+        assert _kernels.LAUNCHES["realign_fill_sub"] == before + (d == cuda)
+    for g, w in zip(out[cuda], out["cpu"]):
+        assert torch.equal(g, w)

@@ -263,19 +263,27 @@ def test_fastlane_long_runs_match_jax(msa_files, founder_seqs, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize(
-    "kw,env",
+    "kw,item",
     [
-        ({"data_parallel": 2}, {}),
-        ({"fused_kernel": True}, {}),
+        ({"data_parallel": 2}, "item 7"),
+        ({"fused_kernel": True}, None),
     ],
     ids=["data-parallel", "fused-kernel"],
 )
-def test_uncovered_configurations_raise(rich_case, tmp_path, monkeypatch, kw, env):
-    index_path, sam, _ = rich_case
-    for key, val in env.items():
-        monkeypatch.setenv(key, val)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_inprocess(sam, index_path, tmp_path, **kw)
+def test_uncovered_configurations_raise(rich_case, tmp_path, kw, item):
+    """--data-parallel raises, naming its ROADMAP item; the fused engines
+    (Queue 1 item 6) are covered and run the object path's fused lane."""
+    from panvc3_tpu_torch.ops import engine
+
+    index_path, sam, (want, want_ranges) = rich_case
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+            _port_inprocess(sam, index_path, tmp_path, **kw)
+        return
+    got, got_ranges, _ = _port_inprocess(sam, index_path, tmp_path, **kw)
+    assert _strip_pg(got) == _strip_pg(want)
+    assert got_ranges == want_ranges
+    assert engine.FUSED_ROUTES["v4_dp"] + engine.FUSED_ROUTES["host_realign"] > 0
 
 
 def _options(module):

@@ -18,8 +18,9 @@ PORT = REPO / "panvc3_tpu_torch"
 # imports every module of the port, runs a small slice of the pipeline
 # (the CLI on a tiny MSA built with the port's own index, with integer and
 # with quality scoring and through the gap kernel, then the object path,
-# BAM out and back in, and three host tools on that BAM), then lists any
-# JAX or panvc3_tpu module loaded
+# the fused engines through the CLI, the workflow driver, BAM out and back
+# in, and three host tools on that BAM), then lists any JAX or panvc3_tpu
+# module loaded
 _SCRIPT = r"""
 import importlib, os, pkgutil, sys
 import numpy as np
@@ -70,6 +71,17 @@ cfg = ProjectConfig(msa_index_path=f"{work}/msa.npz", reference_path=f"{work}/re
                     fastlane=False, status_output_interval=0)
 stats = run_project_alignments(f"{work}/in.sam", f"{work}/obj.sam", cfg, device="cpu")
 assert stats.matched_reads == 40 and stats.realigned_range_count > 0
+# the fused engines through the CLI (the arbiter forced), then the workflow
+# driver on the bundled toy data
+os.environ["PANVC3_ENGINE_LANE"] = "fused"
+assert main(["project_alignments", "--device", "cpu", "-a", f"{work}/in.sam",
+             "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa", "-d", "REF", "-s", "/",
+             "-o", f"{work}/fused.sam", "--status-output-interval", "0"]) == 0
+assert open(f"{work}/fused.sam").read() == open(f"{work}/out.sam").read()
+del os.environ["PANVC3_ENGINE_LANE"]
+from panvc3_tpu_torch import workflow
+assert workflow.main(["--workdir", f"{work}/wf", "--engine", "device", "--device", "cpu",
+                      "--n-reads", "60"]) == 0
 # a BAM round trip on the fast lane, then host tools on the BAM
 common = ["--device", "cpu", "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa", "-d", "REF",
           "-s", "/", "--status-output-interval", "0"]

@@ -235,5 +235,6 @@ def test_project_batch_matches_jax_oracle(msa_files, founder_seqs, monkeypatch, 
         assert got.realigned_total_length == want.realigned_total_length
     # empty batches
     assert bp.project_batch([], ref_seqs, cfg) == []
-    with pytest.raises(NotImplementedError, match="item 6"):
-        bp.start_batch(records, ref_seqs, port.ProjectConfig(fused_kernel=True))
+    # the fused lane (gated off under -q) gives the same results
+    fused_cfg = port.ProjectConfig(use_read_base_qualities=quality, fused_kernel=True)
+    assert bp.project_batch(records, ref_seqs, fused_cfg) == results
