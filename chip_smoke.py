@@ -81,9 +81,19 @@ Phases, in order; any failure raises and exits non-zero:
    (b) under PANVC3_PALLAS_FUSED=0 (K2 and the plain traceback, no K1);
    each SAM must equal the same records of phase 4's device-lane SAM.  Each
    row prints its routes, launches, build seconds, the device-to-host probe
-   and what the engine-lane arbiter picks unforced on this host.
+   and what the engine-lane arbiter picks unforced on this host;
+10. the mesh (--data-parallel): (a) the dry run, v4 on the first batch of
+   1,024 of phase 9 (b)'s reads on which its own DP answers, sharded over
+   [cuda:0] * 2, [cuda:0] * 4 and every visible card when there are
+   several, every output byte-equal to the unsharded call, with K1's
+   launches per shard and device ms per launch; (b) the CLI with
+   --data-parallel -1 on phase 7's 65,536 reads, integer and -q, whose
+   SAMs must equal phase 7 (c)'s and (d)'s; (c) the library with
+   fused_kernel=True, data_parallel=-1 and device=[cuda:0, cuda:0] on
+   phase 9 (b)'s reads at 1,024 per batch, whose SAM and route counts must
+   equal phase 9 (b)'s, v4's own DP answering.
 
-Launch counts are set to 0 just before each path of phases 4-9 and read
+Launch counts are set to 0 just before each path of phases 4-10 and read
 just after it.  The kernels' JSON summary and the card's name and power
 limit come before the last line, which is {"ok": true, "device": {...}}.
 Every timing is printed beside the card's name and power limit.
@@ -518,11 +528,14 @@ class Tool:
 
     def run(self, tag: str, env: dict, sam: pathlib.Path, quality: bool = False,
             fastlane: bool = True, expect: int | None = N_READS, bam: bool = False,
-            batch: int | None = None):
+            batch: int | None = None, extra: tuple = (), cfg_kw: dict | None = None,
+            device=None):
         """(output, wall seconds, launches by entry, aggregate diag) of
         one call, which also prints its reads/s and peak device memory; the
         counts start at 0 here.  ``fastlane=False`` runs the object path
-        through ``run_project_alignments`` with the CLI's settings.
+        through ``run_project_alignments`` with the CLI's settings, changed
+        by ``cfg_kw``, on ``device`` (the tool's device by default; a list
+        of devices for a mesh).  ``extra`` is added to the CLI's arguments.
         ``expect`` is the number of records it must write.  With ``bam``
         the input is read as BAM (-B) and BAM is written (-b): the output
         returned is then the file's records as SAM text lines."""
@@ -547,12 +560,12 @@ class Tool:
             "-o", str(out_path), "--status-output-interval", "0",
         ] + (["-q"] if quality else []) + (["-B", "-b"] if bam else []) + (
             ["--device-batch-size", str(batch)] if batch else []
-        )
+        ) + list(extra)
         cfg = ProjectConfig(
             msa_index_path=str(self.index_path), reference_path=str(self.fasta_path),
             reference_msa_id="REF", ref_id_separator="/", chr_shard=(0, 1),
             status_output_interval=0, engine="device", fastlane=False,
-            use_read_base_qualities=quality, output_bam=bam,
+            use_read_base_qualities=quality, output_bam=bam, **(cfg_kw or {}),
         )
         on_card = self.device == "cuda"
         _kernels.reset_launches()
@@ -564,7 +577,7 @@ class Tool:
         if fastlane:
             rc = cli_main(argv)
         else:
-            run_project_alignments(str(sam), str(out_path), cfg, device=self.device)
+            run_project_alignments(str(sam), str(out_path), cfg, device=device or self.device)
             rc = 0
         if on_card:
             torch.cuda.synchronize()
@@ -595,6 +608,7 @@ class Tool:
 
 def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.synth import every_other
 
     t0 = time.perf_counter()
     rows = synth.make_msa(CHR21_COLUMNS, seed)
@@ -655,17 +669,22 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
         f"({N_READS} records, @PG stripped); {changed} records' CIGARs differ "
         "from the integer run's"
     )
-    phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used)
+    obj_sams = phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used)
     phase_tools(tool, seed, rows_tsv, founders, sam_path, q_sam_path, dev_sam, q_dev, used)
-    phase_fused(tool, sam_path, dev_sam, used)
+    routes = phase_fused(tool, sam_path, dev_sam, used)
+    phase_mesh(
+        tool, (work / "reads_head.sam", work / "reads_q_head.sam"), obj_sams,
+        work / "reads_fused_even.sam", every_other(strip_pg(dev_sam), N_OBJECT_READS),
+        routes["fused-b-even"], used,
+    )
     return used
 
 
-def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used) -> None:
+def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used):
     """Phase 7: the fast lane over the gap kernel (=0) and over the device
     event geometry (=device), then the object path, integer and -q, each
     against the device-lane SAM of phase 4 or 5.  The object path's K1
-    launches join ``used``."""
+    launches join ``used``; returns the object path's SAMs (c), (d)."""
     import torch
 
     from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
@@ -749,6 +768,7 @@ def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used) -> None:
         f"SAM ({N_READS} records, @PG stripped); object path SAM == its first "
         f"{N_OBJECT_READS} records, -q object path SAM == those of the -q device lane"
     )
+    return obj_sam, q_obj
 
 
 class TimedBuilds:
@@ -861,6 +881,196 @@ def phase_fused(tool, sam_path, dev_sam, used, n_reads: int = N_OBJECT_READS,
         f"({n_reads} records each, @PG stripped)"
     )
     return routes
+
+
+class TimedLaunches:
+    """Device milliseconds of each kernel launch while in use: CUDA events
+    recorded on the launching stream around every ``_kernels.launch``
+    (which still counts it), summed by entry and read at exit."""
+
+    def __enter__(self):
+        import torch
+
+        from panvc3_tpu_torch.ops import _kernels
+
+        self._launch = _kernels.launch
+        self._events: list = []
+
+        def timed(name, *args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._launch(name, *args)
+            stop.record()
+            self._events.append((name, start, stop))
+
+        _kernels.launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from panvc3_tpu_torch.ops import _kernels
+
+        _kernels.launch = self._launch
+        torch.cuda.synchronize()
+        self.ms: dict[str, list[float]] = {}
+        for name, start, stop in self._events:
+            self.ms.setdefault(name, []).append(start.elapsed_time(stop))
+
+
+def projector_batch(tool, sam: bytes):
+    """A single-device BatchProjector over the tool's MSA (chromosome shard
+    0/1, as the CLI rows load it), the SAM's records and their output
+    references, with the references loaded: what ``run_project_alignments``
+    builds for the object path."""
+    import io
+
+    from panvc3_tpu_torch.io.fasta import FastaReader
+    from panvc3_tpu_torch.io.sam import SamReader
+    from panvc3_tpu_torch.msa_index import MsaIndex
+    from panvc3_tpu_torch.ops.engine import BatchProjector
+    from panvc3_tpu_torch.pipeline import project_alignments as pa
+
+    reader = SamReader(io.BytesIO(sam))
+    records = list(reader)
+    out_header, mapping = pa.process_headers(reader.header, "/", "REF", None)
+    src, dst = pa.fill_sequence_entries(
+        MsaIndex.load(str(tool.index_path), shard=(0, 1)), reader.header.ref_names,
+        len(out_header.ref_names), "/", "REF", mapping, allow_missing=True,
+    )
+    fasta = FastaReader(str(tool.fasta_path))
+    ref_seqs = {r: fasta.read_sequence(out_header.ref_names[r]) for r in sorted(set(mapping))}
+    bp = BatchProjector(src, dst, mapping, 0, -1, "cuda:0" if tool.device == "cuda" else tool.device)
+    bp._ensure_refs(ref_seqs)
+    return bp, records
+
+
+def mesh_dry_run(tool, records, batch: int) -> None:
+    """Phase 10 (a), the counterpart of ``dryrun_multichip``: v4 on the
+    first batch of ``batch`` records on which its own DP answers (no run
+    pool, length or event overflow), unsharded, then sharded over the tool's
+    device twice, four times, and over every visible card when there is
+    more than one: every output equal to the unsharded call's, byte for
+    byte.  Prints K1's launches per shard and its device ms per launch."""
+    import numpy as np
+    import torch
+
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.ops.fetch import DeviceFetch
+    from panvc3_tpu_torch.ops.fused_event import make_fused_event_kernel
+    from panvc3_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch_arrays
+
+    on_card = tool.device == "cuda"
+    for key in Tool.ENV_KEYS:  # phase 9 (d) leaves the split route selected
+        os.environ.pop(key, None)
+    bp, records = projector_batch(tool, records)
+    geo, ref_flat = bp.event_geometry, bp.ref_flat_dev
+    costs = (np.float32(0), np.float32(-1))
+    one = make_fused_event_kernel(geo)
+    for start in range(0, len(records) - batch + 1, batch):
+        chunk = records[start:start + batch]
+        _, _, staged = bp.stage(chunk)
+        arrays = bp.v4_inputs(chunk, staged)
+        kw = dict(R=staged.pad_ref_units, run_r=bp.FUSED_RUN_PAD, run_q=bp.FUSED_RUN_PAD,
+                  slot_pool=max(256, batch // 2))
+        want = DeviceFetch(*one(ref_flat, *arrays.values(), *costs, **kw)).get()
+        flags = want[7]
+        if flags[0] == flags[1] == 0 and flags[2] > 0:
+            break
+    else:
+        raise AssertionError(f"no batch of {batch} records on which v4's own DP answers")
+    dev = f"{tool.device}:0" if on_card else tool.device
+    meshes = [[dev] * 2, [dev] * 4]
+    if on_card and torch.cuda.device_count() > 1:
+        meshes.append(make_mesh(None, "cuda").devices)
+    names = ("initial", "gapbits", "d_vals", "d_pos8", "d_n8", "realign_ops",
+             "realign_counts", "flags")
+    for devices in meshes:
+        mesh = make_mesh(None, list(devices))
+        kernel = make_fused_event_kernel(geo, mesh)
+        args = (replicate(mesh, ref_flat), *shard_batch_arrays(mesh, arrays).values(), *costs)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        if on_card:
+            with TimedLaunches() as timed:
+                out = kernel(*args, **kw)
+                got = DeviceFetch(*out[:8]).get()
+            k1_ms = timed.ms.get("realign_fused_int", [])
+        else:
+            out = kernel(*args, **kw)
+            got = DeviceFetch(*out[:8]).get()
+            k1_ms = []
+        wall = time.perf_counter() - t0
+        for name, g, w in zip(names, got, want):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(f"mesh {[str(d) for d in devices]}: {name} != unsharded call")
+        k1 = _kernels.LAUNCHES["realign_fused_int"]
+        if on_card and k1 < 1:
+            raise AssertionError(f"mesh {[str(d) for d in devices]}: K1 was not launched")
+        per_launch = f"{sum(k1_ms) / len(k1_ms):.4f}" if k1_ms else "not measured"
+        log(
+            f"[mesh] dry run, v4 on {batch} records (records {start}..{start + batch - 1}) over "
+            f"{[str(d) for d in devices]}: every output == the unsharded call, byte for byte; "
+            f"flags {flags.tolist()}; slots per shard {out.slot_ranges}; K1 {k1} launches "
+            f"({k1 / mesh.size:.2f} per shard), {per_launch} ms per launch; whole call "
+            f"{wall * 1e3:.1f} ms incl. fetch ({tool.card})"
+        )
+
+
+def phase_mesh(tool, heads, obj_sams, even, want_even, fused_b_routes, used,
+               batch: int = 1024) -> None:
+    """Phase 10, the mesh (--data-parallel): (a) the dry run
+    (``mesh_dry_run``) on phase 9 (b)'s even reads ``even``; (b) the CLI
+    with --data-parallel -1 on ``heads`` (phase 7's reads, integer then
+    -q), whose SAMs must equal phase 7 (c)'s and (d)'s ``obj_sams``; (c)
+    the library with ``fused_kernel=True``, ``data_parallel=-1`` and the
+    tool's device twice on ``even`` at ``batch`` per batch, whose SAM must
+    equal phase 9 (b)'s (``want_even``, @PG stripped), with v4's own DP
+    answering and the route counts equal to phase 9 (b)'s.  K1's launches
+    on (b) and (c) join ``used``."""
+    from panvc3_tpu_torch.ops import engine
+    from panvc3_tpu_torch.parallel.mesh import make_mesh
+
+    mesh_dry_run(tool, even.read_bytes(), batch)
+
+    device = {"PANVC3_HOST_DP": "0"}
+    dp = ("--data-parallel", "-1")
+    obj_sam, q_obj = obj_sams
+    n_obj = len(records(obj_sam))
+    for tag, src, quality, want, entry in (
+        ("mesh-int", heads[0], False, obj_sam, "realign_fused_int"),
+        ("mesh-q", heads[1], True, q_obj, "realign_fused_qual"),
+    ):
+        got, _, launches, _ = tool.run(tag, device, src, quality=quality, expect=n_obj, extra=dp)
+        if strip_pg(got) != strip_pg(want):
+            raise AssertionError(f"{tag}: --data-parallel -1 SAM differs from phase 7's object path")
+        if tool.device == "cuda" and launches[entry] < 1:
+            raise AssertionError(f"{tag}: {entry} was not launched")
+        used[entry] += launches[entry]
+
+    dev = f"{tool.device}:0" if tool.device == "cuda" else tool.device
+    n_even = len(records(want_even))
+    got, _, launches, _ = tool.run(
+        "mesh-fused", device, even, fastlane=False, expect=n_even, device=[dev, dev],
+        cfg_kw={"fused_kernel": True, "data_parallel": -1, "device_batch_size": batch},
+    )
+    routes = dict(engine.FUSED_ROUTES)
+    if strip_pg(got) != want_even:
+        raise AssertionError("mesh-fused: SAM differs from phase 9 (b)'s")
+    if routes["v4_dp"] < 1 or routes != fused_b_routes:
+        raise AssertionError(f"mesh-fused: routes {routes}, phase 9 (b) {fused_b_routes}")
+    if tool.device == "cuda" and launches["realign_fused_int"] < routes["v4_dp"]:
+        raise AssertionError(f"mesh-fused: K1 {launches['realign_fused_int']} launches")
+    used["realign_fused_int"] += launches["realign_fused_int"]
+    cli_mesh = [str(d) for d in make_mesh(None, tool.device).devices]
+    log(
+        f"[mesh] --data-parallel -1 (mesh {cli_mesh}) SAMs == phase 7 (c), (d) "
+        f"({n_obj} records each); "
+        f"library mesh {[dev, dev]}, fused lane: SAM == phase 9 (b)'s ({n_even} records), "
+        f"routes {json.dumps(routes)} "
+        f"== phase 9 (b)'s; K1 {launches['realign_fused_int']} launches ({tool.card})"
+    )
 
 
 def head_sam(src: pathlib.Path, dst: pathlib.Path, n: int) -> pathlib.Path:

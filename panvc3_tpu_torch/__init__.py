@@ -41,12 +41,17 @@ def build_root() -> pathlib.Path:
     return pathlib.Path(__file__).resolve().parent.parent / "build" / "panvc3_tpu_torch"
 
 
-def resolve_device(device) -> "torch.device":  # noqa: F821
-    """The torch.device named by ``device`` ('cuda', 'cuda:N' or 'cpu').
-    A CUDA device raises when no card is present: nothing falls back to
-    the CPU."""
+def resolve_device(device):
+    """The torch.device named by ``device`` ('cuda', 'cuda:N' or 'cpu'),
+    or for a list or tuple of such names (a mesh's devices, repeats
+    allowed) the list of their torch.devices.  A CUDA entry raises when no
+    card is present: nothing falls back to the CPU."""
     import torch
 
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        return [resolve_device(d) for d in device]
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

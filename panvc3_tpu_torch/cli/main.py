@@ -180,7 +180,7 @@ def cmd_project_alignments(argv=None) -> int:
         "--data-parallel",
         type=int,
         default=0,
-        help="shard batches over several devices (not ported: raises)",
+        help="shard batches over a device mesh (0=single device, -1=all, N=first N)",
     )
     p.add_argument("--print-invocation", action="store_true")
     p.add_argument("--print-pid", action="store_true")

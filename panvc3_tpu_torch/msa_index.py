@@ -19,23 +19,12 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .bitvec import GapBitVector
+from .parallel.distributed import split_chromosomes
 
 MAGIC = "panvc3_tpu-msa-index"
 # v1: per-word int64 rank array; v2: two-level rank directory
 # (int64 superblocks + uint16 relative blocks, see bitvec.GapBitVector)
 FORMAT_VERSION = 2
-
-
-def split_chromosomes(chr_ids, n_shards: int) -> list[list[str]]:
-    """Deterministic round-robin assignment of sorted chromosome ids to
-    shards (copy of ``panvc3_tpu.parallel.distributed.split_chromosomes``,
-    whose module imports JAX)."""
-    if n_shards <= 0:
-        raise ValueError("n_shards must be positive")
-    shards: list[list[str]] = [[] for _ in range(n_shards)]
-    for i, chr_id in enumerate(sorted(chr_ids)):
-        shards[i % n_shards].append(chr_id)
-    return shards
 
 
 @dataclass

@@ -17,6 +17,11 @@ device by one of two lanes:
   overflow realigns on the split lane's host path; ``FUSED_ROUTES`` counts
   which route answered each batch.
 
+Over a device mesh (``mesh=``, ``parallel/mesh.py``) the batch is cut
+into the mesh's row blocks: the gap kernel and v4 run once per shard on
+its device, over one replica per device of the gap index, the event
+tables and the flat reference; the rest runs on the mesh's first device.
+
 ``choose_engine_lane`` picks the lane for a run.  The fast lane
 (``pipeline/fastlane.run_fast``) uses only the device sequence ids, the
 realignment timer and the flat reference of this object.
@@ -38,16 +43,19 @@ from ..alphabet import decode_phred42, normalise_dna5
 from ..cigar import CODE_TO_OP, collapse_cigar
 from ..indel_runs import IndelRun, find_indel_runs
 from ..native import get_native
+from ..parallel.mesh import replicate, shard_batch_arrays
 from ..projector import ProjectionResult
 from .fetch import DeviceFetch
 from .rank_select import DeviceGapIndex
 from .realign_batch import PINNED_REF_QUALS, realign_batch_finish, realign_batch_start
 from .rewrite_batch import (
+    CODE_NONE,
     expand_cigars,
     fetch_gap_outputs,
     finalize_rewrite,
     reconstruct_main_code,
     rewrite_gap_kernel_packed,
+    rewrite_gap_kernel_sharded,
 )
 
 
@@ -171,8 +179,16 @@ class BatchProjector:
         gap_opening_cost: int,
         gap_extension_cost: int,
         device: torch.device,
+        mesh=None,
     ):
-        self.device = torch.device(device)
+        """``mesh``: an optional ``parallel.mesh.Mesh``; when given, batches
+        are sharded over it (records data-parallel; the gap index, the
+        event tables and the flat reference replicated, one copy per
+        device) and the unsharded work (the v3 re-dispatch, the split
+        lane's realignment) runs on its first device, which is then the
+        projector's ``device``."""
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
         self.gap_opening_cost = gap_opening_cost
         self.gap_extension_cost = gap_extension_cost
         self.ref_id_mapping = ref_id_mapping
@@ -199,9 +215,11 @@ class BatchProjector:
         # PANVC3_EVENT_GEOMETRY=0) and the v3 engine read it
         self._vectors = vectors
         self._index = None
+        self._index_replicas = None
         # the fused v4 engine's event geometry, built on the first fused
         # batch from these entries (the fast lane builds its own)
         self._entries = (src_entries, dst_entries)
+        self._event_geometry = None
         self._fused_event_kernel = None
         self._index_lock = threading.Lock()  # guards both lazy builds
 
@@ -210,6 +228,7 @@ class BatchProjector:
         # buffer/offset pair for the ref-gather wire).
         self._ref_lock = threading.Lock()
         self._ref_flat = None
+        self._ref_flat_replicas = None
         self._ref_flat_host = np.zeros(0, dtype=np.uint8)
         self._ref_off: dict[int, int] = {}
 
@@ -220,6 +239,7 @@ class BatchProjector:
         ``index`` entry (``DeviceGapIndex.numpy_state`` layout) gives the
         gap index; without it the projector has none."""
         bp = cls.__new__(cls)
+        bp.mesh = None
         bp.device = torch.device(device)
         bp.gap_opening_cost = int(state["gap_opening_cost"])
         bp.gap_extension_cost = int(state["gap_extension_cost"])
@@ -233,11 +253,14 @@ class BatchProjector:
             if state.get("index") is not None
             else None
         )
+        bp._index_replicas = None
         bp._entries = None
+        bp._event_geometry = None
         bp._fused_event_kernel = None
         bp._index_lock = threading.Lock()
         bp._ref_lock = threading.Lock()
         bp._ref_flat = None
+        bp._ref_flat_replicas = None
         bp._ref_flat_host = np.array(state["ref_flat_host"], dtype=np.uint8)
         bp._ref_off = {int(k): int(v) for k, v in state["ref_off"].items()}
         return bp
@@ -266,13 +289,22 @@ class BatchProjector:
             return self._index
 
     @property
-    def fused_event_kernel(self):
-        """The v4 engine bound to the device event geometry of this
-        projector's entries, built on first use."""
+    def index_replicas(self) -> tuple:
+        """The gap index on each shard's device of the mesh: built once on
+        the first device and copied to each other device, once."""
+        index = self.index
         with self._index_lock:
-            if self._fused_event_kernel is None:
+            if self._index_replicas is None:
+                self._index_replicas = replicate(self.mesh, index)
+            return self._index_replicas
+
+    @property
+    def event_geometry(self):
+        """The device event geometry of this projector's entries on its
+        device, built on first use."""
+        with self._index_lock:
+            if self._event_geometry is None:
                 from .event_geometry import DeviceEventGeometry, EventGeometry
-                from .fused_event import make_fused_event_kernel
 
                 if self._entries is None:
                     raise RuntimeError(
@@ -280,9 +312,19 @@ class BatchProjector:
                         "entries for the fused engine's event geometry"
                     )
                 host_geo = EventGeometry(*self._entries, self.ref_id_mapping)
-                self._fused_event_kernel = make_fused_event_kernel(
-                    DeviceEventGeometry(host_geo, self.device)
-                )
+                self._event_geometry = DeviceEventGeometry(host_geo, self.device)
+            return self._event_geometry
+
+    @property
+    def fused_event_kernel(self):
+        """The v4 engine bound to ``event_geometry`` (over the mesh, to its
+        replicas), built on first use."""
+        geo = self.event_geometry
+        with self._index_lock:
+            if self._fused_event_kernel is None:
+                from .fused_event import make_fused_event_kernel
+
+                self._fused_event_kernel = make_fused_event_kernel(geo, self.mesh)
             return self._fused_event_kernel
 
     def _ensure_refs(self, ref_seqs: dict[int, bytes]) -> None:
@@ -300,6 +342,7 @@ class BatchProjector:
                 np.concatenate(parts) if parts else np.zeros(1, dtype=np.uint8)
             )
             self._ref_flat = None  # device copy made lazily
+            self._ref_flat_replicas = None
 
     def ref_flat_snapshot(self, max_h2d_bytes: int | None = None):
         """(device flat reference, {rid: offset}) as a consistent pair, or
@@ -328,6 +371,15 @@ class BatchProjector:
             ).to(self.device)
         return self._ref_flat
 
+    @property
+    def ref_flat_replicas(self) -> tuple:
+        """The flat reference on each shard's device of the mesh, one copy
+        per device."""
+        with self._ref_lock:
+            if self._ref_flat_replicas is None:
+                self._ref_flat_replicas = replicate(self.mesh, self._ref_flat_dev_locked())
+            return self._ref_flat_replicas
+
     # -- the batch pipeline: start_batch -> finish_rewrite -> finish_realign
 
     #: run pad of the fused engines' DP (longer runs realign on the host
@@ -339,11 +391,90 @@ class BatchProjector:
         ``cfg.fused_kernel`` asks and the batch passes its gates, else the
         gap kernel.  The outputs head for pinned host memory at once and no
         flag is read here.  Returns an opaque handle for
-        :meth:`finish_batch` (None for no records)."""
+        :meth:`finish_batch` (None for no records).
+
+        Under a mesh, the rules of the JAX engine's mesh branch: v4's batch
+        is padded to the mesh's divisibility with empty records, which
+        count in its 16-bit gate and in its slot pool; a batch v4 does not
+        take goes to the sharded gap kernel (v3 is not the engine under a
+        mesh); the gap kernel's batch is padded to its bucket, then to the
+        mesh, with copies of the first row.  The v4 engine sums its run
+        totals across shards on the host, once per batch."""
         self._ensure_refs(ref_seqs)
         if not records:
             return None
+        queries, dst_ref_ids, batch = self.stage(records)
+        b = len(records)
+        mesh = self.mesh
+        use_fused = (
+            bool(getattr(cfg, "fused_kernel", False))
+            and not getattr(cfg, "use_read_base_qualities", False)
+            and get_native() is not None
+        )
+        if use_fused:
+            # v4 is the default fused engine: its u8 wire needs R <= 255,
+            # its boundary-rank matrix is O(ops**2) per record, and its
+            # compaction packs record ids and query coordinates into 16-bit
+            # fields, which the mesh's pad rows count in; v3 takes the rest
+            # and PANVC3_FUSED_EVENT=0
+            mesh_pad = (-b) % mesh.size if mesh is not None else 0
+            use_event = (
+                batch.pad_ref_units <= 255
+                and batch.ops.shape[1] <= 32
+                and b + mesh_pad < 65536
+                and batch.query.shape[1] < 65536
+                and os.environ.get("PANVC3_FUSED_EVENT") != "0"
+            )
+            if use_event:
+                fkin = self.v4_inputs(records, batch, mesh_pad)
+                costs = (np.float32(self.gap_opening_cost), np.float32(self.gap_extension_cost))
+                if mesh is None:
+                    ref_flat = self.ref_flat_dev
+                else:
+                    fkin = shard_batch_arrays(mesh, fkin)
+                    ref_flat = self.ref_flat_replicas
+                out = self.fused_event_kernel(
+                    ref_flat, *fkin.values(), *costs,
+                    R=batch.pad_ref_units, run_r=self.FUSED_RUN_PAD,
+                    run_q=self.FUSED_RUN_PAD, slot_pool=max(256, (b + mesh_pad) // 2),
+                )
+                return ("fusedev", records, queries, dst_ref_ids, batch, DeviceFetch(*out[:8]),
+                        ref_seqs, cfg, self._ref_flat_host)
+            if mesh is None:
+                return ("fused", records, queries, dst_ref_ids, batch,
+                        self._dispatch_fused_gap(batch, b), ref_seqs, cfg)
 
+        # the gap kernel reads four arrays per record
+        kernel_inputs = [batch.src_seq, batch.dst_seq, batch.rec_src_pos, batch.n_ref_units]
+        # bucket the batch dimension: pad to the configured batch size, or
+        # the next power of two below it, with copies of the first row
+        # (their results are sliced off), then to the mesh's divisibility;
+        # the fused engines keep the exact size, as their run detection
+        # would count the padding's runs
+        target = int(getattr(cfg, "device_batch_size", 0)) or b
+        n_pad = max(0, min(target, next_pow2(b)) - b)
+        if mesh is not None:
+            n_pad += (-(b + n_pad)) % mesh.size
+        if n_pad:
+            kernel_inputs = [
+                np.concatenate([a, np.repeat(a[:1], n_pad, axis=0)]) for a in kernel_inputs
+            ]
+        if mesh is None:
+            out = rewrite_gap_kernel_packed(self.index, *kernel_inputs, batch.pad_ref_units)
+        else:
+            out = rewrite_gap_kernel_sharded(
+                mesh, self.index_replicas, *kernel_inputs, batch.pad_ref_units
+            )
+        fetch = DeviceFetch(*out[:6])
+        # the host reference snapshot: a later batch's _ensure_refs may
+        # rebuild it while this batch is in flight
+        return ("split", records, queries, dst_ref_ids, batch, (fetch, out[6]),
+                ref_seqs, cfg, n_pad, self._ref_flat_host)
+
+    def stage(self, records):
+        """(dna5-normalised queries, output reference ids, the expanded
+        ``RewriteBatch``) of a batch of records whose references are
+        loaded (``_ensure_refs``)."""
         queries = [normalise_dna5(rec.seq) for rec in records]
         cigars = [rec.cigar for rec in records]
         dst_ref_ids = [self.ref_id_mapping[rec.ref_id] for rec in records]
@@ -366,57 +497,26 @@ class BatchProjector:
             pad_ref_units=max(2, next_pow2(max_ref_units)),
             pad_query=max(2, next_pow2(max_q)),
         )
-        b = len(records)
-        use_fused = (
-            bool(getattr(cfg, "fused_kernel", False))
-            and not getattr(cfg, "use_read_base_qualities", False)
-            and get_native() is not None
-        )
-        if use_fused:
-            # v4 is the default fused engine: its u8 wire needs R <= 255,
-            # its boundary-rank matrix is O(ops**2) per record, and its
-            # compaction packs record ids and query coordinates into 16-bit
-            # fields; v3 takes the rest and PANVC3_FUSED_EVENT=0
-            use_event = (
-                batch.pad_ref_units <= 255
-                and batch.ops.shape[1] <= 32
-                and b < 65536
-                and batch.query.shape[1] < 65536
-                and os.environ.get("PANVC3_FUSED_EVENT") != "0"
-            )
-            if use_event:
-                out = self.fused_event_kernel(
-                    self.ref_flat_dev,
-                    np.asarray([rec.ref_id for rec in records], dtype=np.int32),
-                    batch.rec_src_pos, batch.n_ref_units, batch.ref_off,
-                    batch.ops, batch.counts, batch.query,
-                    np.float32(self.gap_opening_cost), np.float32(self.gap_extension_cost),
-                    R=batch.pad_ref_units, run_r=self.FUSED_RUN_PAD,
-                    run_q=self.FUSED_RUN_PAD, slot_pool=max(256, b // 2),
-                )
-                return ("fusedev", records, queries, dst_ref_ids, batch, DeviceFetch(*out),
-                        ref_seqs, cfg, self._ref_flat_host)
-            return ("fused", records, queries, dst_ref_ids, batch,
-                    self._dispatch_fused_gap(batch, b), ref_seqs, cfg)
+        return queries, dst_ref_ids, batch
 
-        # the gap kernel reads four arrays per record
-        kernel_inputs = [batch.src_seq, batch.dst_seq, batch.rec_src_pos, batch.n_ref_units]
-        # bucket the batch dimension: pad to the configured batch size, or
-        # the next power of two below it, with copies of the first row
-        # (their results are sliced off); the fused engines keep the exact
-        # size, as their run detection would count the padding's runs
-        target = int(getattr(cfg, "device_batch_size", 0)) or b
-        n_pad = max(0, min(target, next_pow2(b)) - b)
+    @staticmethod
+    def v4_inputs(records, batch, n_pad: int = 0) -> dict:
+        """The v4 engine's batch arrays for staged records, in its argument
+        order, with ``n_pad`` empty records appended (a mesh's pad): no
+        units and no ops, so they emit no tokens and no runs, and the run
+        compaction sees the real records only."""
+        arrays = dict(
+            ref_ids=np.asarray([rec.ref_id for rec in records], dtype=np.int32),
+            rec_src_pos=batch.rec_src_pos, n_ref_units=batch.n_ref_units,
+            ref_off=batch.ref_off, ops=batch.ops, counts=batch.counts, query=batch.query,
+        )
         if n_pad:
-            kernel_inputs = [
-                np.concatenate([a, np.repeat(a[:1], n_pad, axis=0)]) for a in kernel_inputs
-            ]
-        out = rewrite_gap_kernel_packed(self.index, *kernel_inputs, batch.pad_ref_units)
-        fetch = DeviceFetch(*out[:6])
-        # the host reference snapshot: a later batch's _ensure_refs may
-        # rebuild it while this batch is in flight
-        return ("split", records, queries, dst_ref_ids, batch, (fetch, out[6]),
-                ref_seqs, cfg, n_pad, self._ref_flat_host)
+            for key, arr in arrays.items():
+                pad = np.zeros((n_pad,) + arr.shape[1:], dtype=arr.dtype)
+                if key == "ops":
+                    pad[:] = CODE_NONE
+                arrays[key] = np.concatenate([np.asarray(arr), pad])
+        return arrays
 
     def finish_batch(self, handle) -> list[ProjectionResult]:
         """Fetch and post-process a batch started with start_batch."""
@@ -555,6 +655,10 @@ class BatchProjector:
         b = len(records)
         (dst_pos_a, gapbits, d_vals, d_pos, d_n, realign_ops, realign_counts,
          flags) = fetch.get()
+        # a mesh's empty pad records come last; drop their rows
+        dst_pos_a, gapbits, d_vals, d_pos, d_n = (
+            a[:b] for a in (dst_pos_a, gapbits, d_vals, d_pos, d_n)
+        )
         if int(flags[1]):
             # event slots or widths overflowed: the rewrite outputs are
             # invalid, so the batch goes through v3

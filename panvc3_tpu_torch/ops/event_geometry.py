@@ -354,6 +354,24 @@ class DeviceEventGeometry:
         self._meta_t = self.meta_tab.t().contiguous()  # one row per pair
         self._eff_cache: dict[int, tuple[int, int]] = {}
 
+    def to(self, device) -> "DeviceEventGeometry":
+        """The geometry on ``device``: each device table copied once,
+        device to device, the host data shared (self where it is there
+        already)."""
+        device = torch.device(device)
+        if device == self.search_tab.device:
+            return self
+        geo = type(self).__new__(type(self))
+        geo._state = {
+            k: (v.to(device) if isinstance(v, torch.Tensor) else v) for k, v in self._state.items()
+        }
+        for key, val in geo._state.items():
+            setattr(geo, key, val)
+        geo.device = device
+        geo._meta_t = self._meta_t.to(device)
+        geo._eff_cache = self._eff_cache  # a function of the host tables alone
+        return geo
+
     @staticmethod
     def _tables(host_geo) -> dict:
         """The tables of the JAX object, in numpy, under its attribute

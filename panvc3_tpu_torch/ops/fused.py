@@ -110,9 +110,12 @@ def recover_runs(tok_code, tok_len, start_ref):
     return report, run_start_ref, run_ref_len, g_q, run_query_len
 
 
-def gather_and_align(ref_flat, query, c_sr, c_rl, c_sq, c_ql, c_rec, go, ge, run_r, run_q):
+def gather_and_align(ref_flat, query, c_sr, c_rl, c_sq, c_ql, c_rec, go, ge, run_r, run_q,
+                     rec_base: int = 0):
     """The compacted runs' reference and query slices, and their DP.
-    Returns ``(realign_ops, realign_counts, len_overflow)``."""
+    ``query`` holds the records from ``rec_base`` on (a shard's rows) and
+    ``c_rec`` their batch-wide ids.  Returns ``(realign_ops,
+    realign_counts, len_overflow)``."""
     dev = c_sr.device
     rr = torch.arange(run_r, dtype=torch.int32, device=dev)[None, :]
     rq = torch.arange(run_q, dtype=torch.int32, device=dev)[None, :]
@@ -125,19 +128,26 @@ def gather_and_align(ref_flat, query, c_sr, c_rl, c_sq, c_ql, c_rec, go, ge, run
     ref_slice = torch.where(rr < ref_len[:, None], ref_slice, 0)
 
     q_idx = torch.clamp(c_sq[:, None] + rq, 0, query.shape[1] - 1)
-    q_slice = query[c_rec.long()[:, None], q_idx.long()]
+    rec = torch.clamp(c_rec.long() - rec_base, 0, query.shape[0] - 1)
+    q_slice = query[rec[:, None], q_idx.long()]
     q_slice = torch.where(rq < query_len[:, None], q_slice, 0)
 
     ops, counts = _dp(ref_slice, q_slice, query_len, ref_len, go, ge, run_r, run_q)
     return ops, counts, len_overflow
 
 
-def _compact(idx: torch.Tensor, vals: torch.Tensor, slot_pool: int) -> torch.Tensor:
-    """``vals`` scattered to ``idx`` in a pool of ``slot_pool`` slots; index
-    ``slot_pool`` (and anything else out of range) is dropped."""
-    out = torch.zeros((slot_pool + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype, device=vals.device)
+def _compact(idx: torch.Tensor, vals: torch.Tensor, slot_pool: int, lo: int = 0,
+             hi: int | None = None) -> torch.Tensor:
+    """``vals`` scattered to ``idx`` in a pool of ``slot_pool`` slots, of
+    which slots ``[lo, hi)`` are returned (the whole pool by default, a
+    shard's range under a mesh); an index outside them (``slot_pool`` is
+    the drop index) is dropped."""
+    n = (slot_pool if hi is None else hi) - lo
+    idx = idx - lo
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    out = torch.zeros((n + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype, device=vals.device)
     out[idx] = vals
-    return out[:slot_pool]
+    return out[:n]
 
 
 def fused_projection_kernel(

@@ -27,6 +27,13 @@ itself invalid, and the engine re-dispatches the batch through the v3
 engine; run-pool or length overflow (``flags[0]``) keeps the wire
 outputs and realigns on the host path.
 
+Over a device mesh (``make_fused_event_kernel(geo, mesh)``), stages 1 and
+2 run per shard; the run compaction is global across the batch, so the
+shards' run totals meet on the host (``all_gather`` across processes),
+their exclusive prefix gives each shard its first slot of the one pool,
+and each shard runs the DP over its own slots: every output equals the
+single-device call's (JAX's SPMD partitioner keeps that by itself).
+
 The JAX version's ``_stage`` argument (truncate after stage N) serves a
 TPU profiling tool and is left out.  Lanes are int32 and wrap as in JAX
 (``fused`` says how); the rank-sort scatter has unique indices per row.
@@ -35,10 +42,12 @@ TPU profiling tool and is left out.  Lanes are int32 and wrap as in JAX
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..cigar import D, EQ, I
+from ..parallel.mesh import replicate
 from .fused import _compact, _i32_cumsum, _i32_sum, gather_and_align, recover_runs
 from .rewrite_batch import CODE_NONE, _IS_MTYPE_OP, _IS_REF_OP, _table, as_device
 
@@ -54,32 +63,16 @@ _PR_OP = 3
 _COUNT_BITS = 26  # op counts pack into attr bits [5, 31)
 
 
-def _fused_event_body(
-    geo,
-    ref_flat,      # uint8[Nref] (DP slices only)
-    ref_ids,       # int32[B] input reference id per record
-    rec_src_pos,   # int32[B]
-    n_ref_units,   # int32[B]
-    ref_off,       # int32[B]
-    ops,           # int8[B, O]
-    counts,        # int32[B, O]
-    query,         # uint8[B, Lq] dna5-normalised
-    go,
-    ge,
-    R: int,
-    run_r: int,
-    run_q: int,
-    slot_pool: int,
-):
-    """One batch on ``geo``'s device.  Returns ``(initial int32[B],
-    gapbits uint8[B, R/8], d_vals, d_pos8 uint8[B, K], d_n8 uint8[B],
-    realign_ops int8[slot_pool, run_r+run_q], realign_counts
-    int32[slot_pool], flags int32[3])``; ``flags`` is ``[run pool +
-    length + count overflow, event overflow, total runs]``."""
+def _event_runs(geo, ref_ids, rec_src_pos, n_ref_units, ops, counts, R: int):
+    """Stages 1 and 2 on the records of a batch, or of one shard of it, on
+    ``geo``'s device: every step is per record.  Returns ``(wire,
+    ev_overflow, cnt_overflow, runs)``: ``wire`` the five event-wire
+    outputs, ``ev_overflow`` the slot and width overruns (the ``R > 255``
+    term left to the caller), ``cnt_overflow`` the op counts too wide to
+    pack, ``runs`` the run lanes ``(report, run_start_ref, run_ref_len,
+    run_start_query, run_query_len)``, each ``(B, T)``."""
     dev = geo.device
-    ref_flat, ref_off, ops, counts, query = (
-        as_device(a, dev) for a in (ref_flat, ref_off, ops, counts, query)
-    )
+    ops, counts = as_device(ops, dev), as_device(counts, dev)
     B, O = ops.shape
     counts = counts.int()
 
@@ -97,7 +90,7 @@ def _fused_event_body(
     d_vals = torch.clamp(d_len, max=255).to(torch.uint8)
     d_pos8 = torch.clamp(d_rel, max=255).to(torch.uint8)
     d_n8 = torch.clamp(dcnt, max=255).to(torch.uint8)
-    ev_overflow = (ov_slots + _i32_sum(d_len >= 255) + (1 if R > 255 else 0)).int()
+    ev_overflow = (ov_slots + _i32_sum(d_len >= 255)).int()
 
     # ---- boundaries in unit space ----
     code = ops.long()
@@ -200,18 +193,19 @@ def _fused_event_body(
     tok_len = torch.cat(
         [torch.stack([sorted_dlen, main_len], dim=2).reshape(B, 2 * NB), full(1, 0)], dim=1
     )
-    T = 2 * NB + 1
-    report, run_start_ref, run_ref_len, run_start_query, run_query_len = recover_runs(
-        tok_code, tok_len, initial
-    )
+    runs = recover_runs(tok_code, tok_len, initial)
+    return (initial, gapbits, d_vals, d_pos8, d_n8), ev_overflow, cnt_overflow, runs
 
-    # ---- run compaction: a per-record prefix sum plus record offsets ----
-    row_incl = _i32_cumsum(report.int(), 1)
-    row_counts = row_incl[:, -1]
-    rec_off = _i32_cumsum(row_counts, 0) - row_counts  # exclusive
-    total_runs = rec_off[-1] + row_counts[-1]
-    gslot = rec_off[:, None] + row_incl - 1
-    pool_overflow = (total_runs > slot_pool).int()
+
+def _compact_runs(runs, row_incl, rec_off, ref_off, rec_base: int, slot_base: int,
+                  slot_pool: int, lo: int = 0, hi: int | None = None):
+    """Scatter the reported runs of records ``rec_base..`` into the slot
+    pool (a record's runs from ``slot_base + rec_off``, in token order),
+    and return slots ``[lo, hi)`` of it as ``(c_sr, c_rl, c_sq, c_ql,
+    c_rec)``.  ``c_rec`` is the batch-wide record id."""
+    report, run_start_ref, run_ref_len, run_start_query, run_query_len = runs
+    B, T = report.shape
+    gslot = slot_base + rec_off[:, None] + row_incl - 1
 
     # breaks sit only on main-lane tokens and the final column, so the
     # scatter runs over that (B, NB+1) sub-lattice, two 16-bit fields to a
@@ -223,7 +217,7 @@ def _fused_event_body(
     scatter_idx = torch.where(
         main_lane(report), torch.clamp(main_lane(gslot), 0, slot_pool - 1), slot_pool
     ).reshape(-1).long()
-    rec_b = torch.arange(B, dtype=torch.int32, device=dev)[:, None].expand(B, T)
+    rec_b = rec_base + torch.arange(B, dtype=torch.int32, device=report.device)[:, None].expand(B, T)
     vals = torch.stack(
         [
             main_lane(run_start_ref + ref_off[:, None]),
@@ -232,12 +226,49 @@ def _fused_event_body(
         ],
         dim=2,
     ).reshape(-1, 3)
-    compacted = _compact(scatter_idx, vals, slot_pool)
-    c_sr = compacted[:, 0]
-    c_rl = compacted[:, 1] >> 16
-    c_rec = compacted[:, 1] & 0xFFFF
-    c_sq = compacted[:, 2] >> 16
-    c_ql = compacted[:, 2] & 0xFFFF
+    compacted = _compact(scatter_idx, vals, slot_pool, lo, hi)
+    return (
+        compacted[:, 0], compacted[:, 1] >> 16, compacted[:, 2] >> 16,
+        compacted[:, 2] & 0xFFFF, compacted[:, 1] & 0xFFFF,
+    )
+
+
+def _fused_event_body(
+    geo,
+    ref_flat,      # uint8[Nref] (DP slices only)
+    ref_ids,       # int32[B] input reference id per record
+    rec_src_pos,   # int32[B]
+    n_ref_units,   # int32[B]
+    ref_off,       # int32[B]
+    ops,           # int8[B, O]
+    counts,        # int32[B, O]
+    query,         # uint8[B, Lq] dna5-normalised
+    go,
+    ge,
+    R: int,
+    run_r: int,
+    run_q: int,
+    slot_pool: int,
+):
+    """One batch on ``geo``'s device.  Returns ``(initial int32[B],
+    gapbits uint8[B, R/8], d_vals, d_pos8 uint8[B, K], d_n8 uint8[B],
+    realign_ops int8[slot_pool, run_r+run_q], realign_counts
+    int32[slot_pool], flags int32[3])``; ``flags`` is ``[run pool +
+    length + count overflow, event overflow, total runs]``."""
+    dev = geo.device
+    ref_flat, ref_off, query = (as_device(a, dev) for a in (ref_flat, ref_off, query))
+    wire, ev_overflow, cnt_overflow, runs = _event_runs(
+        geo, ref_ids, rec_src_pos, n_ref_units, ops, counts, R
+    )
+    ev_overflow = ev_overflow + (1 if R > 255 else 0)
+
+    # ---- run compaction: a per-record prefix sum plus record offsets ----
+    row_incl = _i32_cumsum(runs[0].int(), 1)
+    row_counts = row_incl[:, -1]
+    rec_off = _i32_cumsum(row_counts, 0) - row_counts  # exclusive
+    total_runs = rec_off[-1] + row_counts[-1]
+    pool_overflow = (total_runs > slot_pool).int()
+    c_sr, c_rl, c_sq, c_ql, c_rec = _compact_runs(runs, row_incl, rec_off, ref_off, 0, 0, slot_pool)
 
     realign_ops, realign_counts, len_overflow = gather_and_align(
         ref_flat, query, c_sr, c_rl, c_sq, c_ql, c_rec, go, ge, run_r, run_q
@@ -245,9 +276,114 @@ def _fused_event_body(
     flags = torch.stack(
         [pool_overflow + len_overflow + cnt_overflow, ev_overflow, total_runs]
     ).int()
-    return initial, gapbits, d_vals, d_pos8, d_n8, realign_ops, realign_counts, flags
+    return (*wire, realign_ops, realign_counts, flags)
 
 
-def make_fused_event_kernel(geo):
-    """The v4 engine bound to one ``DeviceEventGeometry``'s tables."""
-    return functools.partial(_fused_event_body, geo)
+class ShardedV4(NamedTuple):
+    """The outputs of v4 over a mesh: the five wire outputs and the two
+    pool outputs are lists of this process's shards in order (joined along
+    the first dimension they are, on one process, the single-device
+    call's outputs); ``flags`` is global, on the first shard's device;
+    ``slot_ranges`` holds the pool slots ``[lo, hi)`` of each local
+    shard."""
+
+    initial: list
+    gapbits: list
+    d_vals: list
+    d_pos8: list
+    d_n8: list
+    realign_ops: list
+    realign_counts: list
+    flags: torch.Tensor
+    slot_ranges: list
+
+
+def _gather_ints(mesh, values: list) -> list[int]:
+    """Per-shard scalars (0-d tensors, one per local shard) as host ints in
+    global shard order: exchanged with ``all_gather`` across processes."""
+    local = torch.stack([v.to(mesh.devices[0]) for v in values]).long()
+    if mesh.process_count == 1:
+        return local.tolist()
+    import torch.distributed as dist
+
+    if dist.get_backend() != "nccl":
+        local = local.cpu()
+    parts = [torch.empty_like(local) for _ in range(mesh.process_count)]
+    dist.all_gather(parts, local)
+    return torch.cat(parts).tolist()
+
+
+def _fused_event_sharded(geos, mesh, ref_flats, ref_ids, rec_src_pos, n_ref_units, ref_off,
+                         ops, counts, query, go, ge, R: int, run_r: int, run_q: int,
+                         slot_pool: int) -> ShardedV4:
+    """v4 over ``mesh``: ``geos`` and ``ref_flats`` are one replica per
+    local shard (``replicate``), the batch arrays lists of row blocks
+    (``shard_batch_arrays``).  Each shard runs the per-record stages on its
+    device; the exclusive prefix of the shards' run totals (gathered to the
+    host, across processes too) gives each shard its first slot; each
+    shard scatters its runs into its own slots of the global pool and runs
+    the DP over them, the last shard also over the empty slots past the
+    runs, which hold what a single-device call leaves there.  Every output
+    equals the single-device call's on the same global inputs, but for a
+    pool overflow's last slot, whose content is unspecified on one device
+    too (the engine discards it)."""
+    rows = ops[0].shape[0]
+    results = [
+        _event_runs(geo, *(a[i] for a in (ref_ids, rec_src_pos, n_ref_units, ops, counts)), R)
+        for i, geo in enumerate(geos)
+    ]
+    row_incl = [_i32_cumsum(runs[0].int(), 1) for _, _, _, runs in results]
+    row_counts = [r[:, -1] for r in row_incl]
+    totals = _gather_ints(mesh, [c.sum() for c in row_counts])
+    bases = [sum(totals[:g]) for g in range(mesh.size + 1)]
+    total_runs = bases[-1]
+
+    pool_ops, pool_counts, ranges, local_flags = [], [], [], []
+    for i, g in enumerate(mesh.local_shards):
+        geo, (_, ev_ov, cnt_ov, runs) = geos[i], results[i]
+        dev = geo.device
+        lo = min(bases[g], slot_pool)
+        hi = slot_pool if g == mesh.size - 1 else min(bases[g + 1], slot_pool)
+        if hi > lo:
+            rec_off = _i32_cumsum(row_counts[i], 0) - row_counts[i]
+            compacted = _compact_runs(
+                runs, row_incl[i], rec_off, as_device(ref_off[i], dev), g * rows, bases[g],
+                slot_pool, lo, hi,
+            )
+            r_ops, r_counts, len_ov = gather_and_align(
+                ref_flats[i], as_device(query[i], dev), *compacted, go, ge, run_r, run_q,
+                rec_base=g * rows,
+            )
+        else:
+            r_ops = torch.empty((0, run_r + run_q), dtype=torch.int8, device=dev)
+            r_counts = torch.empty(0, dtype=torch.int32, device=dev)
+            len_ov = torch.zeros((), dtype=torch.int32, device=dev)
+        pool_ops.append(r_ops)
+        pool_counts.append(r_counts)
+        ranges.append((lo, hi))
+        local_flags.append(torch.stack([len_ov + cnt_ov, ev_ov]).int().to(mesh.devices[0]))
+
+    reduced = torch.stack(local_flags).sum(0).int()
+    if mesh.process_count > 1:
+        import torch.distributed as dist
+
+        on_host = dist.get_backend() != "nccl"
+        buf = reduced.cpu() if on_host else reduced
+        dist.all_reduce(buf)
+        reduced = buf.to(mesh.devices[0])
+    flags = torch.stack([
+        reduced[0] + int(total_runs > slot_pool),
+        reduced[1] + (1 if R > 255 else 0),
+        torch.tensor(total_runs, dtype=torch.int32, device=mesh.devices[0]),
+    ]).int()
+    wire = [[res[0][k] for res in results] for k in range(5)]
+    return ShardedV4(*wire, pool_ops, pool_counts, flags, ranges)
+
+
+def make_fused_event_kernel(geo, mesh=None):
+    """The v4 engine bound to one ``DeviceEventGeometry``'s tables; over
+    ``mesh``, bound to its replicas (``geo`` is copied once to each
+    device) and taking the sharded inputs of ``_fused_event_sharded``."""
+    if mesh is None:
+        return functools.partial(_fused_event_body, geo)
+    return functools.partial(_fused_event_sharded, replicate(mesh, geo), mesh)

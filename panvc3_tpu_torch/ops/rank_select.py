@@ -20,6 +20,7 @@ Two things the JAX version gets from XLA are written out here:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -236,6 +237,17 @@ class DeviceGapIndex:
                     np.require(a, np.int32, ["C", "W"])
                 ).to(device)
         return cls(**arrays, search_steps=int(state["search_steps"]))
+
+    def to(self, device) -> "DeviceGapIndex":
+        """The index on ``device``: each table copied once, device to
+        device (self where it is there already); it is never rebuilt."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return dataclasses.replace(self, **{
+            key: None if getattr(self, key) is None else getattr(self, key).to(device)
+            for key in self.FIELDS
+        })
 
     def numpy_state(self) -> dict:
         """Every array as numpy, in the JAX index's dtypes (uint32 words,

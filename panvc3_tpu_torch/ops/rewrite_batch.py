@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..cigar import CODE_TO_OP, D, EQ, I, M, N, OP_TO_CODE, S, X, Cigar
+from ..parallel.mesh import shard_batch_arrays
 from .rank_select import DeviceGapIndex, take
 
 CODE_NONE = 15  # emitted-op code for "nothing"
@@ -352,6 +353,10 @@ def rewrite_device_kernel_packed(index, ref_flat, src_seq, dst_seq,
 
 
 def _host(t) -> np.ndarray:
+    """``t`` on the host: a tensor, an array, or a list of tensors (a
+    mesh's shards) joined along the first dimension."""
+    if isinstance(t, list):
+        return np.concatenate([_host(p) for p in t])
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
@@ -509,6 +514,29 @@ def rewrite_gap_kernel_packed(index, src_seq, dst_seq, rec_src_pos,
     dev = index.device
     args = (src_seq, dst_seq, rec_src_pos, n_ref_units)
     return _gap_math_packed(index, *(as_device(a, dev) for a in args), R)
+
+
+def rewrite_gap_kernel_sharded(mesh, indexes, src_seq, dst_seq, rec_src_pos,
+                               n_ref_units, R: int):
+    """The gap kernel over a mesh: the batch (its rows a multiple of
+    ``mesh.size``) is cut into the mesh's row blocks and each block runs
+    ``rewrite_gap_kernel_packed`` on its shard's device, over that
+    device's replica in ``indexes`` (``replicate(mesh, index)``).  Returns
+    the seven outputs of one call, each row output a list of this
+    process's shards in order (``DeviceFetch`` and ``fetch_gap_outputs``
+    join them), the overflow count summed on the first shard's device."""
+    shards = shard_batch_arrays(mesh, {
+        "src_seq": src_seq, "dst_seq": dst_seq,
+        "rec_src_pos": rec_src_pos, "n_ref_units": n_ref_units,
+    })
+    outs = [
+        rewrite_gap_kernel_packed(index, *(a[i] for a in shards.values()), R)
+        for i, index in enumerate(indexes)
+    ]
+    rows = [[o[k] for o in outs] for k in range(7)]
+    dev0 = mesh.devices[0]
+    rows[5] = sum(o.to(dev0) for o in rows[5])
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -381,22 +381,14 @@ class LaneController:
 _ADAPT = LaneController()
 
 
-def check_covered(cfg) -> None:
-    """Raise NotImplementedError for a configuration the port's device
-    engine does not run; nothing falls through to another path."""
-    if cfg.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel (multi-GPU) is ROADMAP Queue 1 item 7"
-        )
-
-
-def fastlane_eligible(cfg, batch_engine=None) -> bool:
+def fastlane_eligible(cfg, mesh=None, batch_engine=None) -> bool:
     """Whether the fast lane runs this configuration; the caller takes the
     object path otherwise.  BAM input and output go through the C
-    BAM<->SAM-text converters.  Device sequence ids must fit the gap wire's
+    BAM<->SAM-text converters.  The fast lane is single-device: a mesh
+    takes the object path.  Device sequence ids must fit the gap wire's
     u16 fields (a >65k-sequence index should be sharded with
     ``--msa-index-chr-shard``)."""
-    return not cfg.fused_kernel and (
+    return not cfg.fused_kernel and mesh is None and (
         batch_engine is None
         or max(
             max(batch_engine.src_dev_ids, default=0),
@@ -434,7 +426,6 @@ def run_fast(
     """Drive the full projection pipeline over raw line batches."""
     from .project_alignments import PRESERVED_TAGS
 
-    check_covered(cfg)
     bp = batch_engine
     nat = get_native()
     device = bp.device

@@ -16,8 +16,8 @@ records in batches through ``ops.engine.BatchProjector`` (on its fused
 lane when ``cfg.fused_kernel`` is set, by the caller or by the engine-lane
 arbiter ``choose_engine_lane``);
 ``engine="host"`` runs the scalar host oracle (``projector``) record by
-record.  Configurations the port does not cover raise
-NotImplementedError.
+record.  ``cfg.data_parallel`` shards the object path's batches over a
+device mesh (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -438,14 +438,16 @@ def run_project_alignments(
 ) -> ProjectStatistics:
     """Project the records of ``input_path_or_fh`` to the reference.
     ``device`` is ``'cuda'`` (the default; raises without a card),
-    ``'cuda:N'`` or ``'cpu'`` (the plain PyTorch versions, for tests)."""
-    dev = resolve_device(device)
+    ``'cuda:N'`` or ``'cpu'`` (the plain PyTorch versions, for tests).
+    ``cfg.data_parallel`` shards the device engine's batches over a mesh
+    (``make_mesh``): the first N devices of ``device``'s type, or all of
+    them for -1; a list of devices (repeats allowed, as ``['cpu'] * 8``)
+    is the devices the mesh takes them from, and without
+    ``data_parallel`` its first entry is the one device."""
+    devices = resolve_device(device)
+    dev = devices[0] if isinstance(devices, list) else devices
     if cfg.engine not in ("host", "device"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    if cfg.engine == "device":
-        from .fastlane import check_covered
-
-        check_covered(cfg)
     reader = SamReader(input_path_or_fh)
     input_header = reader.header
     out_header, ref_id_mapping = process_headers(
@@ -493,12 +495,20 @@ def run_project_alignments(
         )
         from .fastlane import fastlane_eligible, run_fast
 
+        mesh = None
+        if cfg.data_parallel:
+            from ..parallel.mesh import make_mesh
+
+            n = cfg.data_parallel
+            mesh = make_mesh(n if n > 0 else None, devices if isinstance(devices, list) else dev.type)
         # the engine-lane arbiter: the fused engine where host CPU is scarce
         # and the device-to-host leg is healthy, else the split fast lane.
-        # Not consulted under -q or without the C extension (the fused
-        # engine gates itself off there), nor when the caller chose.
+        # Not consulted under a mesh, under -q or without the C extension
+        # (the fused engine gates itself off there), nor when the caller
+        # chose.
         if (
             not cfg.fused_kernel
+            and mesh is None
             and not cfg.use_read_base_qualities
             and get_native() is not None
             and os.environ.get("PANVC3_ENGINE_AUTO", "1") != "0"
@@ -513,8 +523,9 @@ def run_project_alignments(
             cfg.gap_opening_cost,
             cfg.gap_extension_cost,
             device=dev,
+            mesh=mesh,
         )
-        if cfg.fastlane and fastlane_eligible(cfg, batch_engine):
+        if cfg.fastlane and fastlane_eligible(cfg, mesh, batch_engine):
             run_fast(
                 reader, writer, cfg, stats, batch_engine,
                 input_header, out_header, src_entries, dst_entries,

@@ -540,3 +540,108 @@ def test_projection_step_on_card_matches_cpu(cuda):
         assert _kernels.LAUNCHES["realign_fill_sub"] == before + (d == cuda)
     for g, w in zip(out[cuda], out["cpu"]):
         assert torch.equal(g, w)
+
+
+# -- the mesh: shards on one card (a device may repeat) against one call
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_sharded_gap_kernel_on_card_matches_unsharded(cuda, n_shards):
+    """The gap kernel over [cuda:0] * n: one launch set per shard over the
+    one copy of the index, every output equal to one call's."""
+    from panvc3_tpu_torch.bitvec import GapBitVector
+    from panvc3_tpu_torch.ops import rewrite_batch as rb
+    from panvc3_tpu_torch.ops.fetch import DeviceFetch
+    from panvc3_tpu_torch.ops.rank_select import DeviceGapIndex
+    from panvc3_tpu_torch.parallel.mesh import make_mesh, replicate
+
+    rng = np.random.default_rng(21)
+    src_row = np.frombuffer(_gap_rows(rng, 900, 0.02), np.uint8).copy()
+    src_row[200:500:3] = ord("-")  # records with more than 8 deletions overflow
+    vectors = [GapBitVector.from_gap_string(r) for r in (src_row.tobytes(), _gap_rows(rng, 900, 0.02))]
+    R, B = 64, 8190
+    args = (np.zeros(B, np.int32), np.ones(B, np.int32),
+            rng.integers(-3, 520, B).astype(np.int32), rng.integers(0, R + 1, B).astype(np.int32))
+    index = DeviceGapIndex.build(vectors, device="cuda:0")
+    mesh = make_mesh(None, ["cuda:0"] * n_shards)
+    replicas = replicate(mesh, index)
+    assert all(r is index for r in replicas)
+    out = rb.rewrite_gap_kernel_sharded(mesh, replicas, *args, R)
+    assert all(p.device == torch.device("cuda:0") for p in out[0])
+    got = DeviceFetch(*out).get()
+    want = [t.cpu().numpy() for t in rb.rewrite_gap_kernel_packed(index, *args, R)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert int(want[5]) > 0
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_v4_on_card_matches_unsharded(cuda, tmp_path, n_shards):
+    """v4 over [cuda:0] * n on 2048 staged reads (the mixed kinds): every
+    output equal to one call's, and K1 launched once per shard that holds
+    slots."""
+    import types
+
+    from chip_smoke import projector_batch
+    from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.ops import _kernels
+    from panvc3_tpu_torch.ops.fetch import DeviceFetch
+    from panvc3_tpu_torch.ops.fused_event import make_fused_event_kernel
+    from panvc3_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch_arrays
+
+    rows = synth.make_msa(300_000, seed=5)
+    index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
+    sam = synth.every_other(synth.reads_sam("c1", founders, 4096, seed=6), 2048)
+    tool = types.SimpleNamespace(index_path=index_path, fasta_path=fasta_path, device="cuda")
+    bp, records = projector_batch(tool, sam)
+    _, _, staged = bp.stage(records)
+    arrays = bp.v4_inputs(records, staged)
+    kw = dict(R=staged.pad_ref_units, run_r=16, run_q=16, slot_pool=max(256, len(records) // 2))
+    costs = (np.float32(0), np.float32(-1))
+    want = DeviceFetch(*make_fused_event_kernel(bp.event_geometry)(
+        bp.ref_flat_dev, *arrays.values(), *costs, **kw)).get()
+    mesh = make_mesh(None, ["cuda:0"] * n_shards)
+    before = _kernels.LAUNCHES["realign_fused_int"]
+    out = make_fused_event_kernel(bp.event_geometry, mesh)(
+        replicate(mesh, bp.ref_flat_dev), *shard_batch_arrays(mesh, arrays).values(), *costs, **kw)
+    got = DeviceFetch(*out[:8]).get()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert int(want[7][2]) > 0
+    held = sum(hi > lo for lo, hi in out.slot_ranges)
+    assert _kernels.LAUNCHES["realign_fused_int"] - before == held
+
+
+@pytest.mark.parametrize("quality,fused", [(False, True), (True, False)], ids=["fused-v4", "q"])
+def test_data_parallel_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality, fused):
+    """project_alignments with data_parallel=-1 over [cuda:0, cuda:0] (the
+    fused v4 lane, or the object path under -q) against one CPU run."""
+    from panvc3_tpu_torch import synth
+    from panvc3_tpu_torch.ops import _kernels, engine
+    from panvc3_tpu_torch.pipeline.project_alignments import (
+        ProjectConfig,
+        run_project_alignments,
+    )
+
+    rows = synth.make_msa(300_000, seed=5)
+    index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
+    sam = synth.every_other(synth.reads_sam("c1", founders, 6000, seed=6, qualities=quality), 3000)
+    monkeypatch.setenv("PANVC3_HOST_DP", "0")
+    outs = {}
+    for dev, dp in (("cpu", 0), (["cuda:0", "cuda:0"], -1)):
+        cfg = ProjectConfig(
+            msa_index_path=str(index_path), reference_path=str(fasta_path),
+            reference_msa_id="REF", ref_id_separator="/", engine="device",
+            device_batch_size=512, status_output_interval=0, fastlane=False,
+            use_read_base_qualities=quality, fused_kernel=fused, data_parallel=dp,
+        )
+        before = dict(_kernels.LAUNCHES)
+        out = io.BytesIO()
+        run_project_alignments(io.BytesIO(sam), out, cfg, device=dev)
+        outs[dp] = out.getvalue()
+        launched = {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v - before[k]}
+    entry = "realign_fused_qual" if quality else "realign_fused_int"
+    assert set(launched) == {entry}, launched
+    if fused:
+        assert engine.FUSED_ROUTES["v4_dp"] > 0, engine.FUSED_ROUTES
+    assert outs[-1] == outs[0]

@@ -18,9 +18,10 @@ PORT = REPO / "panvc3_tpu_torch"
 # imports every module of the port, runs a small slice of the pipeline
 # (the CLI on a tiny MSA built with the port's own index, with integer and
 # with quality scoring and through the gap kernel, then the object path,
-# the fused engines through the CLI, the workflow driver, BAM out and back
-# in, and three host tools on that BAM), then lists any JAX or panvc3_tpu
-# module loaded
+# the fused engines through the CLI, --data-parallel through the CLI and a
+# mesh of four CPU shards through the library, the workflow driver, BAM out
+# and back in, and three host tools on that BAM), then lists any JAX or
+# panvc3_tpu module loaded
 _SCRIPT = r"""
 import importlib, os, pkgutil, sys
 import numpy as np
@@ -79,6 +80,18 @@ assert main(["project_alignments", "--device", "cpu", "-a", f"{work}/in.sam",
              "-o", f"{work}/fused.sam", "--status-output-interval", "0"]) == 0
 assert open(f"{work}/fused.sam").read() == open(f"{work}/out.sam").read()
 del os.environ["PANVC3_ENGINE_LANE"]
+# --data-parallel: a mesh of the one CPU through the CLI, then four shards
+# on it through the library on the fused lane
+assert main(["project_alignments", "--device", "cpu", "--data-parallel", "-1",
+             "-a", f"{work}/in.sam", "-m", f"{work}/msa.npz", "-r", f"{work}/ref.fa",
+             "-d", "REF", "-s", "/", "-o", f"{work}/dp.sam", "--status-output-interval", "0"]) == 0
+assert open(f"{work}/dp.sam").read().split("@PG")[0] == open(f"{work}/out.sam").read().split("@PG")[0]
+import dataclasses
+stats = run_project_alignments(f"{work}/in.sam", f"{work}/mesh.sam",
+                               dataclasses.replace(cfg, data_parallel=-1, fused_kernel=True),
+                               device=["cpu"] * 4)
+assert stats.matched_reads == 40
+assert open(f"{work}/mesh.sam").read() == open(f"{work}/obj.sam").read()
 from panvc3_tpu_torch import workflow
 assert workflow.main(["--workdir", f"{work}/wf", "--engine", "device", "--device", "cpu",
                       "--n-reads", "60"]) == 0
@@ -173,6 +186,13 @@ def test_cuda_device_raises_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         run_project_alignments(
             tmp_path / "in.sam", tmp_path / "out.sam", cfg, device="cuda:0"
+        )
+    # a mesh with any CUDA entry raises as well
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_project_alignments(
+            tmp_path / "in.sam", tmp_path / "out.sam",
+            ProjectConfig(msa_index_path="missing.npz", engine="device", data_parallel=-1),
+            device=["cpu", "cuda:0"],
         )
     # the CLI's default device is cuda as well
     proc = subprocess.run(

@@ -138,7 +138,8 @@ def _wide_projector(monkeypatch, shift=65536):
 
     real = engine.BatchProjector
 
-    def factory(*args, device):
+    def factory(*args, device, mesh=None):
+        assert mesh is None
         bp = real(*args, device=device)
         state = bp.numpy_state()
         index = bp.index.numpy_state()
@@ -175,6 +176,7 @@ def test_wide_device_ids_take_the_object_path(case, tmp_path, monkeypatch):
 
 def test_fastlane_eligible():
     from panvc3_tpu_torch.ops.engine import BatchProjector
+    from panvc3_tpu_torch.parallel.mesh import make_mesh
     from panvc3_tpu_torch.pipeline import project_alignments as port
     from panvc3_tpu_torch.pipeline.fastlane import fastlane_eligible
 
@@ -185,12 +187,14 @@ def test_fastlane_eligible():
     }
     cfg = port.ProjectConfig()
     assert fastlane_eligible(cfg)
-    assert fastlane_eligible(cfg, BatchProjector.from_numpy_state(state, "cpu"))
+    assert fastlane_eligible(cfg, None, BatchProjector.from_numpy_state(state, "cpu"))
     for key, val in (("src_dev_ids", [0, 65535]), ("dst_dev_ids", [65535])):
-        assert fastlane_eligible(cfg, BatchProjector.from_numpy_state({**state, key: val}, "cpu"))
+        assert fastlane_eligible(cfg, None, BatchProjector.from_numpy_state({**state, key: val}, "cpu"))
     for key, val in (("src_dev_ids", [0, 65536]), ("dst_dev_ids", [70000])):
-        assert not fastlane_eligible(cfg, BatchProjector.from_numpy_state({**state, key: val}, "cpu"))
+        assert not fastlane_eligible(cfg, None, BatchProjector.from_numpy_state({**state, key: val}, "cpu"))
     assert not fastlane_eligible(port.ProjectConfig(fused_kernel=True))
+    # the fast lane is single-device: a mesh takes the object path
+    assert not fastlane_eligible(cfg, make_mesh(2, ["cpu"] * 2))
 
 
 @pytest.mark.parametrize("quality", [False, True], ids=["int", "q"])

@@ -4,11 +4,14 @@ The port imports nothing of ``panvc3_tpu``: it carries copies of the host
 modules it needs.  Each copy here meets its original on the same seeded
 numpy inputs: rank/select, the ``.npz`` index both ways, the SAM parse and
 format round trip, the event geometry, the lane controller's choices, the
-host oracle, and ``--engine host`` end to end.
+host oracle, ``--engine host`` end to end, and the host helpers of
+``parallel/distributed.py``.
 """
 
 from __future__ import annotations
 
+import ast
+import inspect
 import io
 import os
 
@@ -20,6 +23,7 @@ from panvc3_tpu import bitvec as ref_bitvec
 from panvc3_tpu import msa_index as ref_msa
 from panvc3_tpu.io import sam as ref_sam
 from panvc3_tpu.ops import event_geometry as ref_geo
+from panvc3_tpu.parallel import distributed as ref_dist
 from panvc3_tpu.pipeline import fastlane as ref_fastlane
 from panvc3_tpu.pipeline import project_alignments as ref_pa
 from panvc3_tpu_torch import align as port_align
@@ -27,6 +31,7 @@ from panvc3_tpu_torch import bitvec as port_bitvec
 from panvc3_tpu_torch import msa_index as port_msa
 from panvc3_tpu_torch.io import sam as port_sam
 from panvc3_tpu_torch.ops import event_geometry as port_geo
+from panvc3_tpu_torch.parallel import distributed as port_dist
 from panvc3_tpu_torch.pipeline import fastlane as port_fastlane
 from panvc3_tpu_torch.pipeline import project_alignments as port_pa
 
@@ -294,3 +299,24 @@ def test_engine_host_cli_matches_reference(msa_files, founder_seqs, tmp_path):  
         return b"\n".join(ln for ln in b.split(b"\n") if not ln.startswith(b"@PG"))
 
     assert strip_pg(out_path.read_bytes()) == strip_pg(want.getvalue())
+
+
+def _code(fn) -> str:
+    """A function's syntax tree without its docstring."""
+    tree = ast.parse(inspect.getsource(fn)).body[0]
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["qname_shard", "split_records_by_qname", "byte_ranges", "split_chromosomes", "chr_shard",
+     "split_records_by_chr"],
+)
+def test_distributed_copies_match(name):
+    """The host helpers of ``parallel/distributed.py`` are the originals'
+    code (docstrings aside), and ``msa_index`` takes ``split_chromosomes``
+    from there, as the original does."""
+    assert _code(getattr(port_dist, name)) == _code(getattr(ref_dist, name))
+    assert port_msa.split_chromosomes is port_dist.split_chromosomes
