@@ -91,10 +91,24 @@ Phases, in order; any failure raises and exits non-zero:
    SAMs must equal phase 7 (c)'s and (d)'s; (c) the library with
    fused_kernel=True, data_parallel=-1 and device=[cuda:0, cuda:0] on
    phase 9 (b)'s reads at 1,024 per batch, whose SAM and route counts must
-   equal phase 9 (b)'s, v4's own DP answering.
+   equal phase 9 (b)'s, v4's own DP answering;
+11. the installed port: (a) the distribution's wheel, built by pip from the
+   checkout (no network) and unpacked into a temporary target, runs
+   panvc3_torch_project_alignments, the console script its
+   entry_points.txt names, on phase 4's MSA and reads on the device lane,
+   in a process whose PYTHONPATH is the target alone, from outside the
+   checkout, with a temporary XDG_CACHE_HOME: the C extension and both
+   CUDA sources build cold into that cache (seconds printed), the SAM must
+   equal phase 4's device-lane SAM and K1 must launch; (b) the port's test
+   workflow (the Snakefile the wheel carries): its three panvc3 rules
+   through the installed commands on the bundled reads (moved onto the
+   founders by synth.founder_alignments, the aligner's stand-in; the
+   samtools sorts in Python), with device cuda and cpu: equal final SAMs,
+   K1 launched on the card.  Nothing may be written under the target or
+   the checkout's build/.
 
 Launch counts are set to 0 just before each path of phases 4-10 and read
-just after it.  The kernels' JSON summary and the card's name and power
+just after it; phase 11's come from its processes' [fastlane diag] lines.  The kernels' JSON summary and the card's name and power
 limit come before the last line, which is {"ok": true, "device": {...}}.
 Every timing is printed beside the card's name and power limit.
 """
@@ -102,15 +116,22 @@ Every timing is printed beside the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import compileall
+import configparser
+import gzip
+import io
 import json
 import os
 import pathlib
+import re
+import shlex
 import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zipfile
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FUSED_SOURCE = "panvc3_tpu_torch/ops/csrc/realign_fused.cu"
@@ -137,6 +158,15 @@ OPS = {7: "=", 8: "X", 1: "I", 2: "D"}
 OPS_PER_S = 67e12 / 2
 BYTES_PER_S = 3.35e12
 DP_CELL_OPS = 12  # f32 adds, maxes and trace compares per DP cell
+# the console scripts of the port in the distribution's wheel
+PORT_COMMANDS = tuple(f"panvc3_torch_{tool}" for tool in (
+    "index_msa", "project_alignments", "recalculate_mapq", "subset_alignments",
+    "count_supporting_reads", "rewrite_cigar", "split_alignments_by_reference",
+    "alignment_statistics", "convert_bed_positions",
+))
+WORKFLOW_DATA = ROOT / "workflows/test-workflow/data"
+# the port's test workflow, as a path inside the installed package
+TEST_SNAKEFILE = "panvc3_tpu_torch/workflows/test-workflow/Snakefile"
 
 
 def log(msg: str) -> None:
@@ -677,6 +707,7 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
         work / "reads_fused_even.sam", every_other(strip_pg(dev_sam), N_OBJECT_READS),
         routes["fused-b-even"], used,
     )
+    phase_installed(tool, sam_path, one_read, dev_sam, used)
     return used
 
 
@@ -1465,6 +1496,369 @@ def phase_aux_tools(tool, seed, founders, projected_bam, dev_sam, mapq_sam) -> N
         "[tools] split, subset, rewrite_cigar, alignment_statistics, count_supporting_reads: "
         "switch on == switch =0 on the sample; SAM == BAM where alignments are written; "
         f"convert_bed_positions: {N_BED} intervals, --bed == standard input"
+    )
+
+
+# -- phase 11: the installed port ------------------------------------------
+
+def build_wheel(out: pathlib.Path) -> pathlib.Path:
+    """The distribution's wheel, built by pip (no network, no build
+    isolation, no dependencies) from a copy of the checkout's sources in
+    ``out``, so that the build writes nothing into the checkout."""
+    src, dist = out / "src", out / "dist"
+    src.mkdir(parents=True)
+    for name in ("pyproject.toml", "setup.py", "MANIFEST.in"):
+        shutil.copy2(ROOT / name, src / name)
+    skip = shutil.ignore_patterns("__pycache__", "build", "native_build", "_native_src", "*.so")
+    for name in ("native", "panvc3_tpu", "panvc3_tpu_torch"):
+        shutil.copytree(ROOT / name, src / name, ignore=skip)
+    proc = subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-build-isolation",
+         "--no-index", "--no-cache-dir", "-q", "-w", str(dist), str(src)],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"pip wheel failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    (wheel,) = dist.glob("*.whl")
+    return wheel
+
+
+def unpack_wheel(wheel: pathlib.Path, target: pathlib.Path) -> dict[str, str]:
+    """Unpack ``wheel`` into ``target`` and byte-compile it, as an install
+    does; return its console scripts, name -> 'module:function'."""
+    with zipfile.ZipFile(wheel) as zf:
+        zf.extractall(target)
+        ep = next(n for n in zf.namelist() if n.endswith(".dist-info/entry_points.txt"))
+    if not compileall.compile_dir(str(target), quiet=1):
+        raise RuntimeError(f"byte-compiling {target} failed")
+    cp = configparser.ConfigParser()
+    cp.optionxform = str
+    cp.read_string((target / ep).read_text())
+    return dict(cp["console_scripts"])
+
+
+def console_script(scripts: dict[str, str], name: str) -> list[str]:
+    """argv that runs the console script ``name``, as the wrapper that an
+    install writes for it does."""
+    module, func = scripts[name].split(":")
+    return [sys.executable, "-c",
+            f"import sys; from {module} import {func}; sys.argv[0] = {name!r}; sys.exit({func}())"]
+
+
+def imported_modules(stderr: str) -> set[str]:
+    """The modules a process run with ``-X importtime`` imported."""
+    return set(re.findall(r"^import time:\s+\d+ \|\s+\d+ \| +(\S+)$", stderr, re.M))
+
+
+def reference_modules(modules) -> list[str]:
+    """Those of ``modules`` that belong to JAX or to the JAX package."""
+    return sorted(m for m in modules if m.split(".")[0] in ("jax", "jaxlib", "panvc3_tpu"))
+
+
+def installed_env(target: pathlib.Path, cache: pathlib.Path, **extra: str) -> dict:
+    """The environment of an installed package: ``PYTHONPATH`` the target
+    alone, ``XDG_CACHE_HOME`` ``cache``, no PANVC3_* switch but ``extra``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PANVC3_") and k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(target), XDG_CACHE_HOME=str(cache), **extra)
+    return env
+
+
+def write_shims(bin_dir: pathlib.Path, commands: dict[str, list[str]]) -> pathlib.Path:
+    """A directory of commands, each name running its argv with the
+    command's arguments, to put first on ``PATH``."""
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    for name, argv in commands.items():
+        shim = bin_dir / name
+        shim.write_text(f'#!/bin/sh\nexec {shlex.join(argv)} "$@"\n')
+        shim.chmod(0o755)
+    return bin_dir
+
+
+# probe run in an installed package's environment: where the package and
+# its builds live, the seconds of the CLI's imports, the cold build of the C
+# extension, and on a card the cold build of the kernels and the seconds
+# to create the CUDA context
+INSTALLED_BUILD = """
+import json, sys, time
+t0 = time.perf_counter()
+import panvc3_tpu_torch
+from panvc3_tpu_torch.cli import main
+from panvc3_tpu_torch.pipeline import project_alignments
+from panvc3_tpu_torch import native
+out = {"package": panvc3_tpu_torch.__file__, "build_root": str(panvc3_tpu_torch.build_root()),
+       "native_dir": str(native.NATIVE_DIR), "import_s": time.perf_counter() - t0}
+t0 = time.perf_counter()
+native.get_native()
+out["native_s"] = time.perf_counter() - t0
+if sys.argv[1] == "kernels":
+    import torch
+    from panvc3_tpu_torch.ops import _kernels
+    t0 = time.perf_counter()
+    _kernels.build_all()
+    out["kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out["cuda_context_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def installed_build(env: dict, cwd: pathlib.Path, kernels: bool) -> dict:
+    """Run ``INSTALLED_BUILD`` in ``env`` from ``cwd``; its JSON line."""
+    proc = subprocess.run(
+        [sys.executable, "-c", INSTALLED_BUILD, "kernels" if kernels else "native"],
+        env=env, cwd=cwd, capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"the installed package's build failed:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def snapshot(root: pathlib.Path) -> dict[str, tuple[int, int]]:
+    """Every file under ``root``: relative path -> (size, mtime in ns)."""
+    if not root.exists():
+        return {}
+    return {
+        str(p.relative_to(root)): (p.stat().st_size, p.stat().st_mtime_ns)
+        for p in sorted(root.rglob("*")) if p.is_file()
+    }
+
+
+def fastlane_diag(stderr: str) -> dict:
+    """The ``[fastlane diag]`` JSON of a run with PANVC3_FASTLANE_PROF=1."""
+    m = re.search(r"\[fastlane diag\] (\{.*\})", stderr)
+    if not m:
+        raise AssertionError(f"no [fastlane diag] line in:\n{stderr[-4000:]}")
+    return json.loads(m.group(1))
+
+
+class _Named(list):
+    """A rule's input, output or params: positional and named entries, as
+    Snakemake formats them (``{input}`` all of them, ``{input.name}`` one)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__([*args, *kw.values()])
+        self.__dict__.update(kw)
+
+    def __format__(self, spec: str) -> str:
+        return " ".join(map(str, self))
+
+
+_RULE_SECTIONS = ("message", "conda", "threads", "benchmark", "input", "output",
+                  "shell", "params", "log", "resources")
+
+
+def snakefile_rules(path: pathlib.Path) -> dict[str, dict[str, str]]:
+    """{rule: {section: text}} of a Snakefile laid out as the repo's are:
+    a section per indented ``name:`` line, continued on deeper lines."""
+    rules: dict[str, dict[str, str]] = {}
+    rule = key = None
+    for line in pathlib.Path(path).read_text().splitlines():
+        m = re.match(r"rule\s+(\w+)\s*:", line)
+        if m:
+            rule, key = rules.setdefault(m.group(1), {}), None
+        elif line and not line[0].isspace():
+            rule = key = None
+        elif rule is not None:
+            m = re.match(r"\s+(\w+)\s*:(.*)$", line)
+            if m and m.group(1) in _RULE_SECTIONS:
+                key = m.group(1)
+                rule[key] = m.group(2)
+            elif key is not None:
+                rule[key] += "\n" + line
+    return rules
+
+
+def rule_entries(rule: dict[str, str], section: str, config: dict) -> _Named:
+    """A parsed rule's input, output or params, evaluated with ``config``
+    in scope, as Snakemake does."""
+    return eval(f"_named({rule.get(section, '')})", {"config": config, "_named": _Named})
+
+
+def rule_io(rule: dict[str, str], config: dict):
+    """(input, output, params, shell command) of a parsed rule, the command
+    formatted from its entries as Snakemake does."""
+    inp, out, params = (rule_entries(rule, k, config) for k in ("input", "output", "params"))
+    cmd = eval(f"({rule['shell']})", {}).format(input=inp, output=out, params=params, threads=1)
+    return inp, out, params, cmd
+
+
+def sort_alignments(src: pathlib.Path, dst: pathlib.Path, by_name: bool) -> None:
+    """``samtools sort [-n]`` stand-in: the records of gzipped SAM ``src``
+    sorted stably by reference and position (unmapped last) or by QNAME
+    (as ``panvc3_tpu_torch.workflow`` sorts them), written as BAM."""
+    from panvc3_tpu_torch.io.sam import SamReader, SamWriter
+
+    reader = SamReader(io.BytesIO(gzip.decompress(src.read_bytes())))
+    records = list(reader)
+    records.sort(key=(lambda r: r.qname) if by_name else (lambda r: (r.ref_id < 0, r.ref_id, r.pos)))
+    writer = SamWriter(str(dst), reader.header, bam=True)
+    for rec in records:
+        writer.write(rec)
+    writer.close()
+
+
+def run_test_workflow(snakefile: pathlib.Path, work: pathlib.Path, env: dict,
+                      config: dict | None = None, data: pathlib.Path = WORKFLOW_DATA):
+    """The test workflow of ``snakefile`` in ``work`` (a copy of ``data``):
+    its three panvc3 rules (build_msa_index, project_alignments,
+    recalculate_mapq) run by ``bash`` in ``env`` with their commands as
+    Snakemake formats them; the aligner stage is
+    ``synth.founder_alignments``, the two samtools sorts
+    ``sort_alignments``.  Returns (the final SAM text, the stderr of
+    project_alignments)."""
+    from panvc3_tpu_torch import synth
+
+    shutil.copytree(data, work)
+    rules = snakefile_rules(snakefile)
+    config = config or {}
+    err = {}
+
+    def run(name: str) -> None:
+        _, out, _, cmd = rule_io(rules[name], config)
+        for path in out:
+            (work / path).parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run(["bash", "-c", f"set -euo pipefail; {cmd}"], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"rule {name} exited {proc.returncode}: {cmd}\n{proc.stderr}")
+        err[name] = proc.stderr
+
+    def entry(name: str, section: str, key: str | int = 0) -> pathlib.Path:
+        entries = rule_entries(rules[name], section, config)
+        return work / (getattr(entries, key) if isinstance(key, str) else entries[key])
+
+    run("build_msa_index")
+    aligned = entry("bowtie_align_reads", "output")
+    aligned.parent.mkdir(parents=True, exist_ok=True)
+    aligned.write_bytes(gzip.compress(
+        synth.founder_alignments(work, entry("build_msa_index", "output", "index"))
+    ))
+    sort_alignments(aligned, entry("project_alignments", "input", "alignments"), by_name=False)
+    run("project_alignments")
+    sort_alignments(entry("project_alignments", "output"), entry("recalculate_mapq", "input"),
+                    by_name=True)
+    run("recalculate_mapq")
+    return gzip.decompress(entry("all", "input").read_bytes()), err["project_alignments"]
+
+
+def phase_installed(tool, sam_path, one_read, dev_sam, used, n_reads: int = N_READS) -> None:
+    """Phase 11: the installed port.  (a) the distribution's wheel, built
+    from the checkout and unpacked into a temporary target, runs
+    ``panvc3_torch_project_alignments`` on the device lane from outside the
+    checkout, with ``PYTHONPATH`` the target alone and a temporary
+    ``XDG_CACHE_HOME``: its SAM must equal phase 4's device-lane SAM
+    (``dev_sam``) and K1 must launch; the C extension and the kernels are
+    built cold into the cache, and nothing is written under the target or
+    the checkout's ``build/``.  (b) the port's test workflow, from the
+    target, through the installed commands on the bundled reads, on the
+    tool's device and on the CPU: equal final SAMs, K1 launched on the
+    card.  K1's launches in both join ``used``."""
+    work, card = (tool.work / "installed").resolve(), tool.card
+    on_card = tool.device == "cuda"
+    t0 = time.perf_counter()
+    wheel = build_wheel(work / "wheel")
+    wheel_s = time.perf_counter() - t0
+    target, cache, run_dir = work / "site", work / "cache", work / "run"
+    scripts = unpack_wheel(wheel, target)
+    run_dir.mkdir()
+    missing = [c for c in PORT_COMMANDS if not scripts.get(c, "").startswith("panvc3_tpu_torch.cli.main:cmd_")]
+    if missing:
+        raise AssertionError(f"the wheel lacks the port's commands {missing}")
+    in_target, in_build = snapshot(target), snapshot(ROOT / "build")
+
+    env = installed_env(target, cache)
+    info = installed_build(env, run_dir, kernels=on_card)
+    package = pathlib.Path(info["package"]).resolve()
+    if not package.is_relative_to(target.resolve()):
+        raise AssertionError(f"the installed run imported {package}, not the target's package")
+    if pathlib.Path(info["build_root"]) != cache / "panvc3_tpu_torch":
+        raise AssertionError(f"the installed build root is {info['build_root']}, not the cache")
+    if not pathlib.Path(info["native_dir"]).resolve().is_relative_to(target.resolve()):
+        raise AssertionError(f"the installed package compiled the C sources of {info['native_dir']}")
+    built = sorted(str(p.relative_to(cache)) for p in cache.rglob("*.so"))
+
+    # -X importtime: the process lists every module it imports
+    python, *entry = console_script(scripts, "panvc3_torch_project_alignments")
+    argv = [python, "-X", "importtime", *entry] + [
+        "--device", tool.device, "-m", str(tool.index_path.resolve()),
+        "-r", str(tool.fasta_path.resolve()),
+        "-d", "REF", "-s", "/", "--msa-index-chr-shard", "0/1", "--status-output-interval", "0",
+    ]
+    lane = installed_env(target, cache, PANVC3_HOST_DP="0", PANVC3_FASTLANE_PROF="1")
+    rows = {}
+    for tag, src in (("one-read", one_read), ("reads", sam_path)):
+        out = run_dir / f"{tag}.sam"
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv + ["-a", str(src.resolve()), "-o", str(out)], env=lane, cwd=run_dir,
+                              capture_output=True, text=True, timeout=900)
+        rows[tag] = (time.perf_counter() - t0, out, proc)
+        if proc.returncode != 0:
+            raise RuntimeError(f"panvc3_torch_project_alignments ({tag}) exited {proc.returncode}:\n{proc.stderr}")
+    wall, out, proc = rows["reads"]
+    modules = imported_modules(proc.stderr)
+    if "panvc3_tpu_torch.ops._kernels" not in modules or reference_modules(modules):
+        raise AssertionError(f"the installed command imported {reference_modules(modules)}")
+    diag = fastlane_diag(proc.stderr)
+    k1 = diag["kernel_launches"]["realign_fused_int"]
+    if strip_pg(out.read_bytes()) != strip_pg(dev_sam):
+        raise AssertionError("the installed command's SAM differs from phase 4's device-lane SAM")
+    if diag["device"].split(":")[0] != tool.device or (on_card and k1 < 1):
+        raise AssertionError(f"the installed command ran on {diag['device']} with K1 {k1} launches")
+    used["realign_fused_int"] += k1
+    setup = rows["one-read"][0]
+    prof = re.search(r"\[fastlane prof\] (.*)", proc.stderr)
+    log(
+        f"[installed] wheel {wheel.name} built in {wheel_s:.1f} s; cold builds in "
+        f"XDG_CACHE_HOME: C extension {info['native_s']:.1f} s"
+        + (f", CUDA kernels {info['kernels_s']:.1f} s" if on_card else "")
+        + f" ({', '.join(built)}); the CLI's imports {info['import_s']:.2f} s"
+        + (f", a CUDA context {info['cuda_context_s']:.2f} s" if on_card else "")
+        + f" (a process of their own); panvc3_torch_project_alignments --device {tool.device} on "
+        f"{n_reads} reads: {n_reads / wall:.0f} reads/s ({wall:.2f} s, the whole process), "
+        f"one read {setup:.2f} s (start, imports, index and FASTA load), "
+        f"{n_reads / max(wall - setup, 1e-9):.0f} reads/s past it; SAM == phase 4's device lane "
+        f"(@PG stripped); K1 {k1} launches; aggregate diag dispatches {diag['dispatches']}, "
+        f"refgather {diag['refgather']}, wire2 {diag['wire2']}; {len(modules)} modules "
+        f"imported, none of JAX or panvc3_tpu; its [fastlane prof]: {prof.group(1) if prof else '-'} "
+        f"({card})"
+    )
+
+    # (b) the port's test workflow through the installed commands
+    shims = write_shims(work / "bin", {c: console_script(scripts, c) for c in PORT_COMMANDS})
+    finals = {}
+    for device in dict.fromkeys((tool.device, "cpu")):
+        wf_env = installed_env(target, cache, PANVC3_HOST_DP="0", PANVC3_FASTLANE_PROF="1")
+        wf_env["PATH"] = f"{shims}{os.pathsep}{wf_env.get('PATH', '')}"
+        t0 = time.perf_counter()
+        final, err = run_test_workflow(target / TEST_SNAKEFILE, work / f"workflow-{device}", wf_env,
+                                       {"device": device})
+        secs = time.perf_counter() - t0
+        diag = fastlane_diag(err)
+        k1 = diag["kernel_launches"]["realign_fused_int"]
+        if diag["device"].split(":")[0] != device or diag["dispatches"] < 1 or (device == "cuda" and k1 < 1):
+            raise AssertionError(f"workflow on {device}: ran on {diag['device']}, "
+                                 f"{diag['dispatches']} dispatches, K1 {k1}")
+        if device == "cuda":
+            used["realign_fused_int"] += k1
+        finals[device] = final
+        log(
+            f"[installed] test workflow, device {device}: index_msa -> project_alignments -> "
+            f"recalculate_mapq through the installed commands in {secs:.1f} s; "
+            f"{len(records(final))} records; aggregate dispatches {diag['dispatches']}, "
+            f"K1 {k1} launches ({card})"
+        )
+    if len(set(map(strip_pg, finals.values()))) != 1:
+        raise AssertionError("the test workflow's final SAMs differ between the devices")
+    if snapshot(target) != in_target:
+        raise AssertionError("the installed runs wrote under the target")
+    if snapshot(ROOT / "build") != in_build:
+        raise AssertionError("the installed runs wrote under the checkout's build/")
+    log(
+        f"[installed] final SAM on {' == '.join(finals)} ({len(records(finals['cpu']))} records, "
+        f"@PG stripped); nothing written under the target ({len(in_target)} files) or the "
+        f"checkout's build/ ({len(in_build)} files) ({card})"
     )
 
 

@@ -22,23 +22,43 @@ old layout and names:
   the object path (device engine) and the host engine; the other eight
   tools, which run on the host as they do in ``panvc3_tpu``
 - ``panvc3_tpu_torch.io``            SAM/BAM, BGZF, FASTA, BED, VCF
-- ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch <tool>``, all nine
+- ``panvc3_tpu_torch.cli``           ``python -m panvc3_tpu_torch <tool>``, all nine;
+  installed, the commands ``panvc3_torch_<tool>``
+- ``panvc3_tpu_torch/workflows/``    the Snakemake workflows that run them
 
 Device choice is explicit: functions take a ``torch.device``; the CLI's
 ``--device`` defaults to ``cuda`` and raises when no card is present.
 ``cpu`` runs the plain PyTorch versions and exists for the tests.
 """
 
+import os
 import pathlib
 
 __version__ = "0.1.0"
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parent
+
+
+def checkout_root() -> pathlib.Path | None:
+    """Root of the source checkout that holds the package, or None when the
+    package is installed: a checkout has ``pyproject.toml`` and the shared
+    C sources (``native/``) beside the package."""
+    root = PACKAGE_DIR.parent
+    if (root / "pyproject.toml").is_file() and (root / "native" / "panvc3_native.c").is_file():
+        return root
+    return None
 
 
 def build_root() -> pathlib.Path:
     """Directory that holds what the package builds at first use (the C
     host extension and the CUDA kernels): ``build/panvc3_tpu_torch`` at the
-    root of the checkout."""
-    return pathlib.Path(__file__).resolve().parent.parent / "build" / "panvc3_tpu_torch"
+    root of a checkout; in an install, which may be read-only,
+    ``${XDG_CACHE_HOME:-~/.cache}/panvc3_tpu_torch``."""
+    root = checkout_root()
+    if root is not None:
+        return root / "build" / "panvc3_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or str(pathlib.Path.home() / ".cache")
+    return pathlib.Path(cache) / "panvc3_tpu_torch"
 
 
 def resolve_device(device):

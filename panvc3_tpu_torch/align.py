@@ -5,13 +5,18 @@ oracle) and the quantised Malde quality tables (copy of
 Gapped columns become per-character CIGAR ops: a gap in seq1 (the
 reference slice) is I, a gap in seq2 (the query slice) D, equal characters
 =, differing ones X.  Scoring is match 0 / mismatch -1, or the Malde (2008)
-base-quality scheme in 1/``MALDE_SCALE`` units.  A length-g gap costs
-``open + g * extend``.  Ties prefer diagonal > vertical (I) > horizontal
-(D), and opening over extending.  The batched DP of
-``panvc3_tpu_torch.ops.realign_batch`` and its kernels match it exactly.
+base-quality scheme in 1/``MALDE_SCALE`` units (unquantised float64 under
+``PANVC3_MALDE_EXACT=1``, which only this host oracle honours).  A
+length-g gap costs ``open + g * extend``.  Ties prefer diagonal >
+vertical (I) > horizontal (D), and opening over extending.  The batched DP
+of ``panvc3_tpu_torch.ops.realign_batch`` and its kernels match it
+exactly.
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 
@@ -25,6 +30,16 @@ _TR_DIAG = 0
 _TR_VERT = 1  # consume seq2 (query)  -> 'I'
 _TR_HORIZ = 2  # consume seq1 (ref)   -> 'D'
 _TR_NONE = 3
+
+
+def malde_score(matches: bool, lhs_phred: int, rhs_phred: int) -> float:
+    """Malde (2008) combined-error score (the reference's align.hh)."""
+    lhs_e = 1.0 / (10.0 ** (lhs_phred / 10.0))
+    rhs_e = 1.0 / (10.0 ** (rhs_phred / 10.0))
+    combined_e = lhs_e + rhs_e - lhs_e / 3.0 * rhs_e * 4.0
+    if matches:
+        return 2.0 + math.log2(1.0 - combined_e)
+    return 2.0 - math.log2(3.0) + math.log2(combined_e)
 
 
 # The quality (-q) scheme quantises Malde scores to 1/2**MALDE_SHIFT units so
@@ -63,6 +78,26 @@ def malde_tables() -> tuple[np.ndarray, np.ndarray]:
 _MALDE_TABLES: tuple[np.ndarray, np.ndarray] | None = None
 
 
+def malde_exact() -> bool:
+    """PANVC3_MALDE_EXACT=1: validation-only host mode that scores the
+    quality (-q) DP in unquantised float64 — the reference's exact
+    arithmetic — instead of the 1/MALDE_SCALE fixed-point tables.  Only
+    the host oracle honours it (device/C engines stay fixed-point); away
+    from exact score ties the chosen alignment is identical."""
+    return os.environ.get("PANVC3_MALDE_EXACT") == "1"
+
+
+def _malde_exact_matrix(eq: np.ndarray, q1: np.ndarray, q2: np.ndarray) -> np.ndarray:
+    """Float64 Malde substitution scores s[i, j] for seq2[i] vs seq1[j],
+    computed with the reference's formula (no quantisation)."""
+    e1 = 10.0 ** (-np.asarray(q1, np.float64) / 10.0)
+    e2 = 10.0 ** (-np.asarray(q2, np.float64) / 10.0)
+    ce = e1[None, :] + e2[:, None] - e1[None, :] / 3.0 * e2[:, None] * 4.0
+    match = 2.0 + np.log2(1.0 - ce)
+    mismatch = 2.0 - np.log2(3.0) + np.log2(ce)
+    return np.where(eq, match, mismatch)
+
+
 def _score_matrix(
     seq1: bytes,
     seq2: bytes,
@@ -75,6 +110,8 @@ def _score_matrix(
     eq = a2[:, None] == a1[None, :]
     if quals1 is None:
         return np.where(eq, 0.0, -1.0)
+    if malde_exact():
+        return _malde_exact_matrix(eq, quals1, quals2)
     # quantised Malde scheme (see malde_tables): s[i, j] in 1/MALDE_SCALE
     # units; the caller scales the gap costs to match
     mt, xt = malde_tables()
@@ -113,8 +150,12 @@ def align_global(
     dst.clear()
 
     # quality mode works in quantised 1/MALDE_SCALE units throughout the DP
-    # (integral values, exact in float64); the returned score is unscaled
-    scale = MALDE_SCALE if quals1 is not None else 1.0
+    # (integral values, exact in float64); the returned score is unscaled.
+    # PANVC3_MALDE_EXACT=1 instead runs the DP directly in float64 Malde
+    # units (validation mode — gap costs then stay unscaled).
+    scale = (
+        MALDE_SCALE if quals1 is not None and not malde_exact() else 1.0
+    )
     go = float(gap_opening) * scale
     ge = float(gap_extension) * scale
 

@@ -3,11 +3,14 @@
 The port runs the same C parse/stage/finalize/splice code as
 ``panvc3_tpu``'s fast lane.  It compiles ``native/*.c`` with the flags of
 ``native/setup.py`` (``-ffp-contract=off`` included) and the interpreter's
-own compiler settings, into ``build/panvc3_tpu_torch/native/``, and loads
-the library by file location.  It never writes ``panvc3_tpu/native_build/``
-(where ``panvc3_tpu``'s loader looks), adds nothing to ``sys.path`` and
-leaves no ``_panvc3_native`` entry in ``sys.modules``.  A failed build
-raises.
+own compiler settings, into ``build_root()/native/``, and loads the
+library by file location.  In a checkout the sources are the shared
+``native/``; an installed package compiles the copy that its wheel
+carries in ``_native_src/`` (staged by ``setup.py``'s ``build_py`` step
+through ``stage_sources``), on the machine that runs it.  It never
+writes ``panvc3_tpu/native_build/`` (where ``panvc3_tpu``'s loader
+looks), adds nothing to ``sys.path`` and leaves no ``_panvc3_native``
+entry in ``sys.modules``.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -16,16 +19,21 @@ import importlib.util
 import pathlib
 import platform
 import shlex
+import shutil
 import sys
 import sysconfig
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from . import PACKAGE_DIR, checkout_root
 from ._build import build_once, digest, run_compiler
 
-NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent / "native"
 SOURCES = ("panvc3_native.c", "fastpath.c", "bgzf.c", "csr.c", "als.c")
 HEADERS = ("panvc3_common.h",)
+#: where an installed package keeps its copy of the sources
+STAGED_DIR = PACKAGE_DIR / "_native_src"
+_CHECKOUT = checkout_root()
+NATIVE_DIR = STAGED_DIR if _CHECKOUT is None else _CHECKOUT / "native"
 # native/setup.py: extra_compile_args, extra_link_args, libraries
 EXTRA_COMPILE_ARGS = ("-O3", "-march=native", "-pthread", "-ffp-contract=off")
 EXTRA_LINK_ARGS = ("-pthread",)
@@ -34,6 +42,14 @@ MODULE_NAME = "_panvc3_native"
 
 _lock = threading.Lock()
 _native = None
+
+
+def stage_sources(src: pathlib.Path, dst: pathlib.Path) -> None:
+    """Copy the C sources and headers from ``src`` (a checkout's
+    ``native/``) to ``dst`` (``_native_src`` inside a built package)."""
+    dst.mkdir(parents=True, exist_ok=True)
+    for name in SOURCES + HEADERS:
+        shutil.copyfile(src / name, dst / name)
 
 
 def _commands(out: pathlib.Path, work: pathlib.Path):

@@ -1,9 +1,10 @@
 """Build, bind and launch the hand-written CUDA kernels of ``ops/csrc``.
 
 Each ``.cu`` file exposes plain C entry points.  A file is compiled by
-``nvcc`` for ``sm_90a`` into ``build/panvc3_tpu_torch/kernels/`` at first
-use and loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds); ``build_all`` compiles every file at once, one ``nvcc`` each.
+``nvcc`` for ``sm_90a`` into ``build_root()/kernels/`` at first use (the
+checkout's ``build/``, or the user's cache in an install) and loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds);
+``build_all`` compiles every file at once, one ``nvcc`` each.
 A missing ``nvcc``, a failed build or a refused launch raises: nothing is
 replaced by the plain PyTorch version.
 

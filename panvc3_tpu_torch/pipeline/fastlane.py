@@ -206,6 +206,23 @@ class LaneController:
                 if self.tick <= self.PROBE_LEN:
                     return self.mode == "host"
                 period = self.BOOTSTRAP_PERIOD
+            elif self.backoff == 1 and os.environ.get(
+                "PANVC3_LANE_MIX", "0"
+            ) == "1":
+                # graduated duty (opt-in, default off): when the lanes
+                # measure close, send the "losing" lane real work at a
+                # higher duty cycle.  On the TPU host the rare-probe
+                # cadence measured better end to end (higher duty
+                # fragments the aggregate windows and loads the writer
+                # thread more than the overlap repays); kept for wider
+                # hosts, and to be measured on the card's.
+                h, d = self.ns_read["host"], self.ns_read["dev"]
+                if h is not None and d is not None:
+                    ratio = max(h, d) / max(min(h, d), 1e-9)
+                    if ratio <= 1.15:
+                        period = 2 * self.PROBE_LEN  # alternate 50/50
+                    elif ratio <= 1.5:
+                        period = 4 * self.PROBE_LEN
             if self.tick % period >= period - self.PROBE_LEN:
                 return self.mode != "host"  # probe the other lane
             return self.mode == "host"

@@ -14,7 +14,8 @@ to every founder with ``AS:i`` tags (QNAME-grouped, what
 ``recalculate_mapq`` takes once they are projected), a diploid
 single-sample VCF over the reference row, and BED intervals.  For the
 workflow driver: verbatim founder reads of the bundled toy data
-(``workflow_reads_sam``).
+(``workflow_reads_sam``), and the bundled reads' own alignments moved onto
+the founders (``founder_alignments``), the test workflow's aligner stage.
 """
 
 from __future__ import annotations
@@ -215,6 +216,64 @@ def workflow_reads_sam(founder_seqs: dict[str, bytes], n_reads: int = 200,
             f"read{i}\t0\ttest/{sid}\t{pos + 1}\t60\t{read_len}=\t*\t0\t0\t{seq}\t{'I' * read_len}\tNM:i:0\tXD:i:7"
         )
     return "\n".join(lines) + "\n"
+
+
+def founder_alignments(data: pathlib.Path, index_path) -> bytes:
+    """Stand-in for the test workflow's aligner stage (``bowtie2 -k``
+    against the founders) on the bundled reads: SAM text, QNAME-grouped.
+
+    ``data/reads/alignment.bam`` holds the simulated reads' alignments to
+    the toy genome (contig ``test``, the MSA's REF row), not to the
+    founders.  Each mapped record is projected from REF onto each founder
+    with the port's projector (the machinery of ``project_alignments`` in
+    the other direction) and written as ``test/<founder>``: primary on the
+    first founder it fits, secondary (0x100) on the others, with
+    Bowtie 2's default penalties as ``AS:i`` (mismatch -6, a gap of k
+    bases -5 - 3k), so each read's placements score differently where the
+    founders differ.  Mates become single reads named ``<qname>.1`` and
+    ``<qname>.2``.  ``index_path`` is the MSA index built from
+    ``data/index-input``."""
+    import bz2
+
+    from .cigar import format_cigar
+    from .io.sam import SamReader
+    from .projector import project_alignment
+
+    rows = {}
+    for line in (data / "index-input/input.tsv").read_text().splitlines():
+        _chr, seq_id, rel = line.split("\t")
+        rows[seq_id] = bz2.open(data / rel, "rb").read().replace(b"-", b"")
+    chrom = MsaIndex.load(str(index_path)).find_chr("test")
+    ref_entry = chrom.find("REF")
+    names = [sid for sid in rows if sid != "REF"]
+    lines = ["@HD\tVN:1.6"] + [f"@SQ\tSN:test/{sid}\tLN:{len(rows[sid])}" for sid in names]
+    reader = SamReader(str(data / "reads/alignment.bam"))
+    for rec in reader:
+        if rec.is_unmapped or rec.seq == "*":
+            continue
+        qname = f"{rec.qname}.{1 if rec.flag & 0x40 else 2}"
+        placed = 0
+        for sid in names:
+            res = project_alignment(
+                rec.pos, ref_entry, chrom.find(sid), rows[sid], rec.seq, rec.cigar, None, 0, -1
+            )
+            # the projected CIGAR holds =, X, I and D against the founder
+            score = sum(
+                -6 * count if op == "X" else -5 - 3 * count if op in "ID" else 0
+                for count, op in res.cigar
+            )
+            ref_len = sum(count for count, op in res.cigar if op in "=XD")
+            if ref_len == 0 or res.dst_pos + ref_len > len(rows[sid]):
+                continue
+            flag = (rec.flag & 0x10) | (0x100 if placed else 0)
+            lines.append(
+                f"{qname}\t{flag}\ttest/{sid}\t{res.dst_pos + 1}\t{rec.mapq}"
+                f"\t{format_cigar(res.cigar)}\t*\t0\t0"
+                f"\t{rec.seq}\t{rec.qual}\tAS:i:{score}"
+            )
+            placed += 1
+    reader.close()
+    return ("\n".join(lines) + "\n").encode()
 
 
 def head_of(sam: bytes, n: int) -> bytes:

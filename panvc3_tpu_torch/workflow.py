@@ -8,16 +8,18 @@ founder-aligned reads from the MSA when none is given, then
 
     index_msa -> project_alignments -> (QNAME sort) -> recalculate_mapq
 
-Run from the root of a checkout, on the bundled reference data:
+In a checkout, ``--data`` defaults to the bundled reference data
+(``workflows/test-workflow/data``); an installed package does not carry
+it, and is given ``--data``:
 
-    python -m panvc3_tpu_torch.workflow --workdir /tmp/wf [--device cuda|cpu]
+    python -m panvc3_tpu_torch.workflow --workdir /tmp/wf [--data DIR] [--device cuda|cpu]
 
 ``project_alignments`` runs the device engine on ``cuda`` unless told
 otherwise, as the port's CLI does; ``cuda`` raises without a card before
 any stage runs.
 
-The Snakefiles under ``workflows/`` invoke ``panvc3_tpu`` and are not
-driven by this module.
+The port's Snakefiles (``panvc3_tpu_torch/workflows/``) run the same
+stages through the installed ``panvc3_torch_*`` commands.
 """
 
 from __future__ import annotations
@@ -27,13 +29,19 @@ import bz2
 import pathlib
 import sys
 
-DATA = pathlib.Path(__file__).resolve().parent.parent / "workflows/test-workflow/data"
+from . import checkout_root
 
 
 def main(argv=None) -> int:
+    root = checkout_root()
+    data_default = root / "workflows/test-workflow/data" if root is not None else None
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workdir", required=True)
-    p.add_argument("--data", default=str(DATA))
+    p.add_argument(
+        "--data", default=data_default,
+        help="the bundled test-workflow data (default: a checkout's "
+        "workflows/test-workflow/data)",
+    )
     p.add_argument("--alignments", help="founder-aligned SAM/BAM input")
     p.add_argument("--n-reads", type=int, default=1000)
     p.add_argument("--engine", choices=("host", "device"), default="device")
@@ -43,6 +51,12 @@ def main(argv=None) -> int:
         "without a card) or cpu (the plain PyTorch versions)",
     )
     args = p.parse_args(argv)
+    if args.data is None:
+        p.error(
+            "--data is required: the package is not in a checkout, and an "
+            "install carries no workflow data (pass a checkout's "
+            "workflows/test-workflow/data)"
+        )
 
     from . import resolve_device
     from .io.sam import SamReader, SamWriter

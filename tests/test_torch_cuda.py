@@ -10,6 +10,9 @@ without the suite's conftest:
 from __future__ import annotations
 
 import io
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -645,3 +648,53 @@ def test_data_parallel_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality,
     if fused:
         assert engine.FUSED_ROUTES["v4_dp"] > 0, engine.FUSED_ROUTES
     assert outs[-1] == outs[0]
+
+
+# -- the installed port: the distribution's wheel, unpacked, on the card
+
+def test_installed_command_on_card_matches_checkout_cpu(cuda, tmp_path):
+    """``panvc3_torch_project_alignments --device cuda`` from the unpacked
+    wheel (``PYTHONPATH`` the target alone, a temporary ``XDG_CACHE_HOME``,
+    run from outside the checkout) builds its C extension and kernels into
+    that cache, launches K1 and gives the checkout's CPU run's SAM."""
+    from chip_smoke import (
+        build_wheel,
+        console_script,
+        fastlane_diag,
+        installed_env,
+        snapshot,
+        strip_pg,
+        unpack_wheel,
+    )
+    from panvc3_tpu_torch import synth
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    rows = synth.make_msa(300_000, seed=5)
+    index_path, fasta_path, founders = synth.write_inputs(tmp_path, "c1", rows)
+    sam = tmp_path / "in.sam"
+    sam.write_bytes(synth.reads_sam("c1", founders, 6000, seed=6))
+    target, cache, run = tmp_path / "site", tmp_path / "cache", tmp_path / "run"
+    scripts = unpack_wheel(build_wheel(tmp_path / "wheel"), target)
+    run.mkdir()
+    before = snapshot(target)
+    args = ["-a", str(sam), "-m", str(index_path), "-r", str(fasta_path), "-d", "REF", "-s", "/",
+            "--device-batch-size", "1024", "--status-output-interval", "0"]
+    outs, diags = {}, {}
+    for dev, argv, env, cwd in (
+        ("cuda", console_script(scripts, "panvc3_torch_project_alignments"),
+         installed_env(target, cache), run),
+        ("cpu", [sys.executable, "-m", "panvc3_tpu_torch", "project_alignments"],
+         installed_env(repo, cache), repo),
+    ):
+        out = tmp_path / f"{dev}.sam"
+        env.update(PANVC3_HOST_DP="0", PANVC3_FASTLANE_PROF="1")
+        proc = subprocess.run(argv + args + ["--device", dev, "-o", str(out)], env=env, cwd=cwd,
+                              capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr
+        diags[dev] = fastlane_diag(proc.stderr)
+        outs[dev] = out.read_bytes()
+    assert diags["cuda"]["kernel_launches"]["realign_fused_int"] > 0, diags
+    assert strip_pg(outs["cuda"]) == strip_pg(outs["cpu"])
+    assert list((cache / "panvc3_tpu_torch/kernels").glob("*/librealign_fused.so"))
+    assert list((cache / "panvc3_tpu_torch/native").glob("*/_panvc3_native*.so"))
+    assert snapshot(target) == before

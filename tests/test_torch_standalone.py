@@ -168,13 +168,16 @@ def test_event_geometry_matches(seed, native, monkeypatch):
         assert np.array_equal(np.asarray(g), np.asarray(w))
 
 
+@pytest.mark.parametrize("mix", [None, "1"], ids=["unset", "lane-mix"])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_lane_controller_choices_match(seed, monkeypatch):
+def test_lane_controller_choices_match(seed, mix, monkeypatch):
     """Both controllers fed one seeded stream of batches, lane timings and
-    emits choose the same lane every time and end in the same state.  The
-    original's opt-in graduated duty (PANVC3_LANE_MIX) is not in the copy,
-    so the original runs with it off."""
-    monkeypatch.delenv("PANVC3_LANE_MIX", raising=False)
+    emits choose the same lane every time and end in the same state, with
+    the opt-in graduated duty (PANVC3_LANE_MIX=1) and without it."""
+    if mix:
+        monkeypatch.setenv("PANVC3_LANE_MIX", mix)
+    else:
+        monkeypatch.delenv("PANVC3_LANE_MIX", raising=False)
     rng = np.random.default_rng(seed)
     ctrls = [ref_fastlane.LaneController(), port_fastlane.LaneController()]
     now = 0
