@@ -9,9 +9,9 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. environment: a CUDA device is required; prints the card's name and
    power limit (nvidia-smi);
-2. builds: compiles both CUDA sources (nvcc, sm_90a, one process each, in
-   parallel) and the C host extension from the checkout's sources,
-   printing the seconds each took;
+2. builds: compiles the three CUDA sources (nvcc, sm_90a, one process
+   each, in parallel) and the C host extension from the checkout's
+   sources, printing the seconds each took;
 3. kernels vs plain versions on the card, byte-equal, both timed, each
    beside its bound: K1's integer and quality entries on 16384 runs all
    48x48 (the aggregate window the main path dispatches, length-sorted),
@@ -20,15 +20,19 @@ Phases, in order; any failure raises and exits non-zero:
    reference-quality tile, its integer entry also on 4096 full runs of
    16x16 (the fused engines' slot pool) and 8192 runs of up to 64x64 (the
    object path's padded 48I48D runs), K2's fill on the three shapes of
-   K1's two entries and at the edges of its schedule (every trace cell), and the
-   locked tie-break fixtures (integer ones through K1, quality ones
-   through K1's quality entry and through K2 plus the plain
-   traceback).  A bound is the larger of the operations the inputs need
-   (12 f32 operations per DP cell, at 33.5 T op/s: the H100's 67 TFLOP/s
-   FP32 counts an FMA as two) and the bytes moved at 3.35 TB/s: the input
-   bytes the runs' lengths make the function read (K1: each run's m query
-   and n reference bytes, m phreds or m x n scores; K2: the score rows
-   1..m at every column) and every output byte, each once;
+   K1's two entries and at the edges of its schedule (every trace cell),
+   the traceback kernel on K2's traces at those three shapes and edges
+   (every op and count), and the locked tie-break fixtures (integer ones
+   through K1, quality ones through K1's quality entry and through K2
+   plus the traceback kernel).  A bound is the larger of the operations
+   the inputs need (12 f32 operations per DP cell, at 33.5 T op/s: the
+   H100's 67 TFLOP/s FP32 counts an FMA as two; 20 integer operations per
+   traceback step, at 16.75 T op/s, half the FP32 lanes) and the bytes
+   moved at 3.35 TB/s: the input bytes the runs' lengths make the function
+   read (K1: each run's m query and n reference bytes, m phreds or m x n
+   scores; K2: the score rows 1..m at every column; the traceback: the
+   trace cell each step reads and the query and reference byte of each
+   diagonal step) and every output byte, each once;
 4. the project_alignments slice at chromosome scale: a synthetic founder
    MSA with the 46,709,983 columns of GRCh38 chr21 (REF + 4 founders, 2%
    gap columns each) and 262,144 reads of 100 bp, projected as one process
@@ -40,7 +44,8 @@ Phases, in order; any failure raises and exits non-zero:
 5. the same slice with quality scoring (project_alignments -q) on the same
    MSA and reads, now with seeded phreds: (a) the device lane must launch
    K1's quality entry through the ref-gather and 2-bit wires, (b) the
-   split route (PANVC3_PALLAS_FUSED=0) must launch K2, (c) the host C DP
+   split route (PANVC3_PALLAS_FUSED=0) must launch K2 and the traceback
+   kernel, once each per dispatch, and nothing else, (c) the host C DP
    lane with the Malde tables; the three SAMs must be equal;
 6. batch realignment with explicit reference qualities (the library entry
    realign_batch) on the card must launch K1's substitution entry and
@@ -78,7 +83,7 @@ Phases, in order; any failure raises and exits non-zero:
    runs), (b) the 65,536 even-numbered reads (the mixed kinds, whose runs
    fit 16x16) at --device-batch-size 1024, where v4's own DP must answer
    and launch K1, (c) (b) under PANVC3_FUSED_EVENT=0 (v3 throughout), (d)
-   (b) under PANVC3_PALLAS_FUSED=0 (K2 and the plain traceback, no K1);
+   (b) under PANVC3_PALLAS_FUSED=0 (K2 and the traceback kernel, no K1);
    each SAM must equal the same records of phase 4's device-lane SAM.  Each
    row prints its routes, launches, build seconds, the device-to-host probe
    and what the engine-lane arbiter picks unforced on this host;
@@ -136,8 +141,11 @@ import zipfile
 ROOT = pathlib.Path(__file__).resolve().parent
 FUSED_SOURCE = "panvc3_tpu_torch/ops/csrc/realign_fused.cu"
 FILL_SOURCE = "panvc3_tpu_torch/ops/csrc/realign_fill.cu"
+TRACEBACK_SOURCE = "panvc3_tpu_torch/ops/csrc/realign_traceback.cu"
 K1_REPLACES = "panvc3_tpu/ops/realign_pallas_fused.py:69"
 K2_REPLACES = "panvc3_tpu/ops/realign_pallas.py:37"
+# an XLA lax.scan in the JAX package, not a Pallas kernel
+TRACEBACK_REPLACES = "panvc3_tpu/ops/realign_batch.py:180"
 CHR21_COLUMNS = 46_709_983
 N_READS = 262_144
 N_OBJECT_READS = 65_536  # the object path's rows (phase 7 c, d)
@@ -158,6 +166,10 @@ OPS = {7: "=", 8: "X", 1: "I", 2: "D"}
 OPS_PER_S = 67e12 / 2
 BYTES_PER_S = 3.35e12
 DP_CELL_OPS = 12  # f32 adds, maxes and trace compares per DP cell
+# INT32 issues on half as many lanes per SM as FP32 on Hopper (64 against
+# 128): a quarter of the FP32 FMA rate as counted above, one op per lane
+INT_OPS_PER_S = 67e12 / 4
+TB_STEP_OPS = 20  # integer ops per traceback step: decode, move, op, update
 # the console scripts of the port in the distribution's wheel
 PORT_COMMANDS = tuple(f"panvc3_torch_{tool}" for tool in (
     "index_msa", "project_alignments", "recalculate_mapq", "subset_alignments",
@@ -206,10 +218,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(cells: int, moved: int) -> tuple[float, str]:
-    """The least time for ``cells`` DP cells and ``moved`` bytes, and
-    which of the two sets it."""
-    t_ops = cells * DP_CELL_OPS / OPS_PER_S * 1e3
+def bound_ms(ops: int, moved: int, ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
+    """The least time for ``ops`` operations at ``ops_per_s`` and ``moved``
+    bytes, and which of the two sets it."""
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = moved / BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -219,10 +231,11 @@ def lengths(m, n, Q: int, R: int):
     return m.clamp(0, Q).long(), n.clamp(0, R).long()
 
 
-def k1_need(m, n, Q: int, R: int, mode: str) -> tuple[int, int]:
-    """(DP cells, input bytes) that K1's ``mode`` entry needs for these
-    runs: m*n cells; each run's lengths, m query and n reference bytes, and
-    its m phreds (with the two 64-entry Malde rows) or m*n f32 scores."""
+def k1_need(m, n, Q: int, R: int, mode: str) -> tuple[int, int, float]:
+    """(operations, input bytes, op rate) that K1's ``mode`` entry needs for
+    these runs: m*n cells; each run's lengths, m query and n reference
+    bytes, and its m phreds (with the two 64-entry Malde rows) or m*n f32
+    scores."""
     mc, nc = lengths(m, n, Q, R)
     cells = int((mc * nc).sum())
     moved = 8 * len(mc) + int(mc.sum() + nc.sum())
@@ -230,16 +243,28 @@ def k1_need(m, n, Q: int, R: int, mode: str) -> tuple[int, int]:
         moved += 4 * int(mc.sum()) + 2 * 64 * 4
     elif mode == "sub":
         moved += 4 * cells
-    return cells, moved
+    return cells * DP_CELL_OPS, moved, OPS_PER_S
 
 
-def k2_need(m, n, Q: int, R: int) -> tuple[int, int]:
-    """(DP cells, input bytes) of K2's fill: every column of rows 1..m (its
-    whole trace is the output, columns past n included), so m*R cells and
-    scores, and the lengths."""
+def k2_need(m, n, Q: int, R: int) -> tuple[int, int, float]:
+    """(operations, input bytes, op rate) of K2's fill: every column of rows
+    1..m (its whole trace is the output, columns past n included), so m*R
+    cells and scores, and the lengths."""
     mc, _ = lengths(m, n, Q, R)
     cells = int(mc.sum()) * R
-    return cells, 4 * cells + 8 * len(mc)
+    return cells * DP_CELL_OPS, 4 * cells + 8 * len(mc), OPS_PER_S
+
+
+def tb_need(ops, count) -> tuple[int, int, float]:
+    """(operations, input bytes, op rate) of the traceback on these runs:
+    the steps their walks take (``count``) at TB_STEP_OPS integer
+    operations each; the trace cells they read, one per step (the walk
+    stops at (0, 0) without reading it); a query and a reference byte per
+    diagonal step (an = or X in ``ops``); and the runs' m and n."""
+    steps = int(count.long().sum())
+    diag = int(((ops == 7) | (ops == 8)).sum())
+    moved = steps + 2 * diag + 8 * len(count)
+    return steps * TB_STEP_OPS, moved, INT_OPS_PER_S
 
 
 def fixture_runs(quality: bool):
@@ -312,8 +337,8 @@ def time_ms(fn, iters: int) -> float:
 def compare(name, shape, kernel, plain, card, results, need) -> None:
     """Hold one kernel call against its plain version (every output
     element equal), time both, and set the kernel's time beside its bound:
-    ``need`` is (DP cells, input bytes read) for the timed runs, and every
-    output byte is written once.  Record the result under ``name`` and
+    ``need`` is (operations, input bytes read, op rate) for the timed runs,
+    and every output byte is written once.  Record the result under ``name`` and
     ``shape``."""
     import torch
 
@@ -323,9 +348,9 @@ def compare(name, shape, kernel, plain, card, results, need) -> None:
     err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
     if err:
         raise AssertionError(f"{name} != plain version at {shape}: max |diff| {err}")
-    cells, read = need
+    n_ops, read, rate = need
     moved = read + nbytes(*got)
-    b_ms, b_by = bound_ms(cells, moved)
+    b_ms, b_by = bound_ms(n_ops, moved, rate)
     k_ms = time_ms(kernel, 20)
     p_ms = time_ms(plain, 2)
     res = results.setdefault(name, {"max_abs_err": 0, "timing": {}})
@@ -334,7 +359,7 @@ def compare(name, shape, kernel, plain, card, results, need) -> None:
     log(
         f"[kernel] {name} B,Q,R={shape[:3]} {shape[3]} lengths: kernel == plain "
         f"(byte-equal); kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {cells} cells, {moved} bytes), {b_ms / k_ms:.1%} of "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_ops} ops, {moved} bytes), {b_ms / k_ms:.1%} of "
         f"bound ({card})"
     )
 
@@ -407,12 +432,16 @@ def k2_edge_lengths(rng, B: int, Q: int, R: int):
 
 def check_k2_edges(rng) -> None:
     """K2 byte-equal to the plain fill in every trace cell at every edge
-    shape, with integer and Malde scores."""
+    shape, with integer and Malde scores; then the traceback kernel on each
+    of K2's traces byte-equal to the plain traceback, with the lengths
+    clamped to the run (the traceback's contract; K2 fills the same trace
+    for m > Q and n > R as for Q and R)."""
     import numpy as np
     import torch
 
     from panvc3_tpu_torch.ops import realign_batch as trb
     from panvc3_tpu_torch.ops.realign_pallas import fill_batch
+    from panvc3_tpu_torch.ops.realign_traceback import traceback_batch
 
     for B, Q, R in K2_EDGE_SHAPES:
         ref, qry = random_runs(rng, B, Q, R, full=True)[:2]
@@ -427,9 +456,17 @@ def check_k2_edges(rng) -> None:
             got = fill_batch(sub, m, n, go, ge, R, Q)
             if not torch.equal(got, trb._fill_batch(sub, m, n, go, ge, R, Q)):
                 raise AssertionError(f"K2 != plain version at B,Q,R={B, Q, R}, {scores} scores")
+            mc, nc = m.clamp(0, Q), n.clamp(0, R)
+            ops, cnt = traceback_batch(got, ref, qry, mc, nc, R, Q)
+            want_ops, want_cnt = trb._traceback_batch(got, ref, qry, mc, nc, R, Q)
+            if not (torch.equal(ops, want_ops) and torch.equal(cnt, want_cnt)):
+                raise AssertionError(
+                    f"traceback kernel != plain version at B,Q,R={B, Q, R}, {scores} scores"
+                )
     log(
         f"[kernel] K2 edge shapes: {len(K2_EDGE_SHAPES)} shapes x 2 scorings "
-        "(integer, Malde) == plain version in every trace cell"
+        "(integer, Malde) == plain version in every trace cell; the traceback "
+        "kernel on each trace == plain version in every op and count"
     )
 
 
@@ -443,6 +480,7 @@ def phase_kernels(card: str) -> dict:
         realign_fused,
         realign_fused_reference,
     )
+    from panvc3_tpu_torch.ops.realign_traceback import traceback_batch
 
     rng = np.random.default_rng(1)
     results: dict = {}
@@ -473,7 +511,17 @@ def phase_kernels(card: str) -> dict:
             lambda: (trb._fill_batch(sub, m, n, kgo, kge, R, Q),),
             card, results, k2_need(m, n, Q, R),
         )
+        # the traceback on K2's trace, as the split route runs it
+        trace = fill_batch(sub, m, n, kgo, kge, R, Q)
         del sub
+        ops, count = traceback_batch(trace, ref, qry, m, n, R, Q)
+        compare(
+            "realign_traceback", shape,
+            lambda: traceback_batch(trace, ref, qry, m, n, R, Q),
+            lambda: trb._traceback_batch(trace, ref, qry, m, n, R, Q),
+            card, results, tb_need(ops, count),
+        )
+        del trace
     # K1's integer entry where the fused engines launch it (their slot pool
     # of 16x16 runs for 8192-record batches) and where the object path and
     # the fused lane's host path launch it (48I48D runs padded to 64x64)
@@ -522,12 +570,16 @@ def phase_kernels(card: str) -> dict:
         trace = fill_batch(sub, m, n, sgo, sge, R, Q)
         if not torch.equal(trace, trb._fill_batch(sub, m, n, sgo, sge, R, Q)):
             raise AssertionError(f"realign_fill_sub != plain version on fixtures go={go} ge={ge}")
-        ops, cnt = trb._traceback_batch(trace, ref, qry, m, n, R, Q)
-        check_cigars(ops, cnt, cigars, f"realign_fill_sub go={go} ge={ge}")
+        ops, cnt = traceback_batch(trace, ref, qry, m, n, R, Q)
+        want_ops, want_cnt = trb._traceback_batch(trace, ref, qry, m, n, R, Q)
+        if not (torch.equal(ops, want_ops) and torch.equal(cnt, want_cnt)):
+            raise AssertionError(f"realign_traceback != plain version on fixtures go={go} ge={ge}")
+        check_cigars(ops, cnt, cigars, f"realign_fill_sub + realign_traceback go={go} ge={ge}")
         n_fix += len(cigars)
     log(
         f"[kernel] {n_fix} quality tie-break fixtures: realign_fused_qual == plain, "
-        "realign_fill_sub == plain, both + traceback == locked CIGARs"
+        "realign_fill_sub == plain, realign_traceback == plain, K1 and K2 + "
+        "the traceback kernel == locked CIGARs"
     )
     return results
 
@@ -682,12 +734,7 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     used["realign_fused_qual"] = launches["realign_fused_qual"]
     if used["realign_fused_qual"] <= 0 or diag["refgather"] <= 0 or diag["wire2"] <= 0:
         raise AssertionError("the -q device lane did not go through K1's quality entry and the wires")
-    q_split, _, launches, _ = tool.run(
-        "q-split", {**device, "PANVC3_PALLAS_FUSED": "0"}, q_sam_path, quality=True
-    )
-    used["realign_fill_sub"] = launches["realign_fill_sub"]
-    if used["realign_fill_sub"] <= 0 or launches["realign_fused_qual"]:
-        raise AssertionError("the -q split route did not go through K2 alone")
+    q_split = phase_split_route(tool, q_sam_path, used)
     q_host, *_ = tool.run("q-host", host, q_sam_path, quality=True)
     if not (strip_pg(q_dev) == strip_pg(q_split) == strip_pg(q_host)):
         raise AssertionError("-q slice: device lane, split route and host lane SAMs differ")
@@ -709,6 +756,22 @@ def phase_slices(card: str, seed: int, work: pathlib.Path) -> dict:
     )
     phase_installed(tool, sam_path, one_read, dev_sam, used)
     return used
+
+
+def phase_split_route(tool, q_sam_path, used, n_reads: int = N_READS) -> bytes:
+    """Phase 5 (b): the -q split route (PANVC3_PALLAS_FUSED=0), which must
+    launch K2 and the traceback kernel once each per dispatch and nothing
+    else.  Its launches join ``used``; returns its SAM."""
+    env = {"PANVC3_HOST_DP": "0", "PANVC3_PALLAS_FUSED": "0"}
+    q_split, _, launches, _ = tool.run("q-split", env, q_sam_path, quality=True, expect=n_reads)
+    k2, tb = launches["realign_fill_sub"], launches["realign_traceback"]
+    if tool.device == "cuda" and (k2 <= 0 or tb != k2 or launches["realign_fused_qual"]):
+        raise AssertionError(
+            f"the -q split route did not go through K2 and the traceback kernel alone: {launches}"
+        )
+    used["realign_fill_sub"], used["realign_traceback"] = k2, tb
+    log(f"[slice] -q split route: K2 {k2} and traceback kernel {tb} launches ({tool.card})")
+    return q_split
 
 
 def phase_geometry(tool, sam_path, q_sam_path, dev_sam, q_dev, used):
@@ -853,8 +916,9 @@ def phase_fused(tool, sam_path, dev_sam, used, n_reads: int = N_OBJECT_READS,
     default batch; (b) ``n_reads`` even-numbered reads (the mixed kinds,
     whose runs fit 16x16) at ``batch``, where v4's own DP must answer; (c)
     (b) under PANVC3_FUSED_EVENT=0 (v3 throughout); (d) (b) under
-    PANVC3_PALLAS_FUSED=0 (K2 and the plain traceback).  The rows' K1 and
-    K2 launches join ``used``; returns each row's route counts."""
+    PANVC3_PALLAS_FUSED=0 (K2 and the traceback kernel).  The rows' K1,
+    K2 and traceback launches join ``used``; returns each row's route
+    counts."""
     from panvc3_tpu_torch.ops import engine
     from panvc3_tpu_torch.synth import every_other, head_of
     from panvc3_tpu_torch.utils import log_peak_memory
@@ -883,6 +947,7 @@ def phase_fused(tool, sam_path, dev_sam, used, n_reads: int = N_OBJECT_READS,
         if strip_pg(got) != want:
             raise AssertionError(f"{tag}: SAM differs from the same records of the device lane's")
         k1, k2 = launches["realign_fused_int"], launches["realign_fill_sub"]
+        tb = launches["realign_traceback"]
         r = routes[tag]
         if sum(r.values()) == 0:
             raise AssertionError(f"{tag}: the fused lane answered no batch")
@@ -890,17 +955,18 @@ def phase_fused(tool, sam_path, dev_sam, used, n_reads: int = N_OBJECT_READS,
             raise AssertionError(f"{tag}: v4 answered {r['v4_dp']} batches by its own DP, K1 {k1}")
         if tag == "fused-c-v3" and (r["v4_dp"] or r["v4_to_v3"] or r["v3"] < 1):
             raise AssertionError(f"{tag}: not v3 throughout: {r}")
-        if tag == "fused-d-split-route" and on_card and (k2 < 1 or k1):
-            raise AssertionError(f"{tag}: K2 launched {k2} times, K1 {k1}")
+        if tag == "fused-d-split-route" and on_card and (k2 < 1 or tb != k2 or k1):
+            raise AssertionError(f"{tag}: K2 launched {k2} times, the traceback {tb}, K1 {k1}")
         if on_card and tag != "fused-d-split-route" and k1 < 1:
             raise AssertionError(f"{tag}: K1 was not launched")
         used["realign_fused_int"] += k1
         used["realign_fill_sub"] += k2
+        used["realign_traceback"] += tb
         os.environ.pop("PANVC3_ENGINE_LANE")
         mbps = engine.probe_d2h_mbps(tool.device)
         unforced = engine.choose_engine_lane(tool.device)
         log(
-            f"[fused] {tag}: routes {json.dumps(r)}; K1 {k1}, K2 {k2} launches; builds "
+            f"[fused] {tag}: routes {json.dumps(r)}; K1 {k1}, K2 {k2}, traceback {tb} launches; builds "
             + ", ".join(f"{k} {v:.2f} s" for k, v in builds.seconds.items())
             + f"; device-to-host {mbps:.0f} MB/s (probe_d2h_mbps); the arbiter picks "
             f"{unforced!r} unforced on this host ({len(os.sched_getaffinity(0))} cores) ({card})"
@@ -1931,7 +1997,7 @@ def build(card: str) -> None:
     if err:
         raise err[0]
     log(
-        f"[build] CUDA kernels {times['cuda']:.1f} s (nvcc sm_90a, both sources "
+        f"[build] CUDA kernels {times['cuda']:.1f} s (nvcc sm_90a, every source "
         f"in parallel), C host extension {times['native']:.1f} s"
     )
     for source, text in sorted(_kernels.BUILD_LOG.items()):
@@ -1974,6 +2040,7 @@ def main() -> int:
         ("realign_fused_qual", FUSED_SOURCE, K1_REPLACES, (16384, 48, 48, "full")),
         ("realign_fused_sub", FUSED_SOURCE, K1_REPLACES, (4096, 48, 48, "random")),
         ("realign_fill_sub", FILL_SOURCE, K2_REPLACES, (16384, 48, 48, "full")),
+        ("realign_traceback", TRACEBACK_SOURCE, TRACEBACK_REPLACES, (16384, 48, 48, "full")),
     ):
         k_ms, p_ms, b_ms, b_by = kern[entry]["timing"][shape]
         entries.append({

@@ -59,6 +59,10 @@ _SIGNATURES = {
         "realign_fill.cu",
         [_P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P],
     ),
+    "realign_traceback": (
+        "realign_traceback.cu",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    ),
 }
 
 #: launches of each C entry since the last ``reset_launches``

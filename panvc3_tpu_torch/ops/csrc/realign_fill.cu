@@ -1,5 +1,5 @@
 // Affine-gap DP fill for Hopper from explicit substitution scores: the
-// split route's fill (the traceback runs after it, in PyTorch).
+// split route's fill (realign_traceback.cu walks the trace after it).
 //
 // Replaces panvc3_tpu/ops/realign_pallas.py::_fill_kernel (launched by
 // fill_batch_pallas), the drop-in for realign_batch._fill_batch.  Output is

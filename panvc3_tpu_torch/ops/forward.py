@@ -3,8 +3,9 @@
 Counterpart of ``panvc3_tpu.ops.forward.projection_step``: the rewrite
 math over (B, R) reference units, then the realignment DP over given
 (B, run_r, run_q) run slices through the split route (the integer
-substitution scores, ``fill_dispatch``, which is K2 on the card, and the
-plain traceback), then three global statistics.  No pipeline calls it;
+substitution scores, ``fill_dispatch``, which is K2 on the card, and
+``traceback_batch``, the traceback kernel on the card), then three global
+statistics.  No pipeline calls it;
 it is the library's one-call form of the two device stages.
 """
 
@@ -13,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from .rank_select import DeviceGapIndex
-from .realign_batch import _substitution_scores, _traceback_batch, fill_dispatch
+from .realign_batch import _substitution_scores, fill_dispatch
+from .realign_traceback import traceback_batch
 from .rewrite_batch import CODE_NONE, as_device, rewrite_math
 
 
@@ -49,7 +51,7 @@ def projection_step(
     )
     sub = _substitution_scores(run_ref, run_query)
     trace = fill_dispatch(sub, run_query_len, run_ref_len, go, ge, run_r, run_q)
-    realign_ops, realign_counts = _traceback_batch(
+    realign_ops, realign_counts = traceback_batch(
         trace, run_ref, run_query, run_query_len, run_ref_len, run_r, run_q
     )
     stats = torch.stack(

@@ -15,7 +15,7 @@ PyTorch on the index's device.  In order:
    is flagged so the host can fall back);
 4. the gather of each run's reference and query slice (reference bytes
    dna5-normalised on the device) and the batched DP (``_dp``: K1, or K2
-   and the plain traceback under ``PANVC3_PALLAS_FUSED=0``).
+   and the traceback kernel under ``PANVC3_PALLAS_FUSED=0``).
 
 The host recomputes the run bookkeeping from the collapsed CIGAR and
 matches realigned runs one to one by order.  Integer scoring only; ``-q``

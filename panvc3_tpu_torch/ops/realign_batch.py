@@ -10,7 +10,9 @@ Counterpart of ``panvc3_tpu.ops.realign_batch``:
 - ``_dp`` routes one batch: K1, the fused kernel
   (``realign_pallas_fused.realign_fused``), or, under
   ``PANVC3_PALLAS_FUSED=0``, the split route: the substitution scores,
-  K2's fill (``fill_dispatch``) and the plain ``_traceback_batch``;
+  K2's fill (``fill_dispatch``) and the traceback kernel
+  (``realign_traceback.traceback_batch``), whose plain version on CPU
+  tensors is ``_traceback_batch``;
 - ``realign_device_kernel`` and the wire functions (three integer, three
   quality ``_q``) decode their input, gather reference rows, run ``_dp``
   and pack the ops;
@@ -40,6 +42,7 @@ from ..alphabet import PHRED42_MAX, dna5_normalise_device
 from ..cigar import CODE_TO_OP, Cigar
 from .realign_pallas import fill_batch
 from .realign_pallas_fused import realign_fused
+from .realign_traceback import traceback_batch
 
 NEG = -1e30
 
@@ -160,7 +163,9 @@ def _fill_batch(sub, m, n, go, ge, R: int, Q: int):
 def _traceback_batch(trace, ref, query, m, n, R: int, Q: int):
     """Batched traceback from (m, n).  trace: (B, Q+1, R+1).  Returns
     (ops int8 (B, R+Q), count int32 (B,)): op k is emitted at step k, and
-    steps past the end of the walk emit the 127 filler."""
+    steps past the end of the walk emit the 127 filler.  The plain version
+    of the traceback kernel (``realign_traceback.traceback_batch``), which
+    runs it on CPU tensors, and the reference for it on the card."""
     B = trace.shape[0]
     dev = trace.device
     stride = R + 1
@@ -231,7 +236,7 @@ def fill_dispatch(sub, m, n, go, ge, R: int, Q: int):
 
 def _use_fused_pallas() -> bool:
     """``PANVC3_PALLAS_FUSED=0`` selects the split route (K2's fill, then
-    the plain traceback); unset or ``1`` selects K1."""
+    the traceback kernel); unset or ``1`` selects K1."""
     return os.environ.get("PANVC3_PALLAS_FUSED") != "0"
 
 
@@ -244,7 +249,7 @@ def _dp(ref, query, m, n, go, ge, R: int, Q: int, sub=None, qual=None):
     if sub is None:
         sub = _qual_scores(ref, query, *qual) if qual is not None else _substitution_scores(ref, query)
     trace = fill_dispatch(sub, m, n, go, ge, R, Q)
-    return _traceback_batch(trace, ref, query, m, n, R, Q)
+    return traceback_batch(trace, ref, query, m, n, R, Q)
 
 
 def _qual_dp(ref, query, qq, ql, rl, go, ge, R: int, Q: int):

@@ -22,6 +22,10 @@ from chip_smoke import K1_EDGE_SHAPES, K2_EDGE_SHAPES, k2_edge_lengths
 
 pytestmark = pytest.mark.cuda
 
+# the split route's kernels (PANVC3_PALLAS_FUSED=0): K2's fill, then the
+# traceback
+_SPLIT_ROUTE = {"realign_fill_sub", "realign_traceback"}
+
 
 @pytest.fixture
 def cuda():
@@ -189,21 +193,22 @@ def test_wires_on_card_match_cpu(cuda, monkeypatch, wire, quality, route):
 
 
 @pytest.mark.parametrize(
-    "quality,env,entry",
+    "quality,env,entries",
     [
-        (False, {}, "realign_fused_int"),
-        (False, {"PANVC3_FASTLANE_CHAOS": "5"}, "realign_fused_int"),
-        (True, {}, "realign_fused_qual"),
-        (True, {"PANVC3_PALLAS_FUSED": "0"}, "realign_fill_sub"),
-        (False, {"PANVC3_PALLAS_FUSED": "0"}, "realign_fill_sub"),
+        (False, {}, {"realign_fused_int"}),
+        (False, {"PANVC3_FASTLANE_CHAOS": "5"}, {"realign_fused_int"}),
+        (True, {}, {"realign_fused_qual"}),
+        (True, {"PANVC3_PALLAS_FUSED": "0"}, _SPLIT_ROUTE),
+        (False, {"PANVC3_PALLAS_FUSED": "0"}, _SPLIT_ROUTE),
     ],
     ids=["int", "int-chaos", "q", "q-split", "int-split"],
 )
-def test_slice_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality, env, entry):
+def test_slice_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality, env, entries):
     """The whole fast lane on the device lane, card vs CPU: pinned
     copies, events and the fetch pool on the card path, with integer and
     quality scoring, on K1 and on the split route, also under scheduling
-    jitter at every cross-thread handoff."""
+    jitter at every cross-thread handoff.  The split route launches K2
+    and the traceback kernel, once each per dispatch."""
     from panvc3_tpu_torch import synth
     from panvc3_tpu_torch.ops import _kernels
     from panvc3_tpu_torch.pipeline import fastlane
@@ -234,7 +239,7 @@ def test_slice_on_card_matches_cpu(cuda, tmp_path, monkeypatch, quality, env, en
         launched = {k: v - before[0][k] for k, v in _kernels.LAUNCHES.items()}
         assert fastlane.AGG_DIAG["wire2"] > before[1]
         if dev == "cuda":
-            assert {k for k, v in launched.items() if v} == {entry}, launched
+            assert {k for k, v in launched.items() if v} == entries, launched
         else:
             assert not any(launched.values()), launched
     assert outs["cuda"] == outs["cpu"]
@@ -462,19 +467,19 @@ def test_recalculate_mapq_spawns_beside_a_cuda_context(cuda, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "fused_event,pallas_fused,entry,route",
+    "fused_event,pallas_fused,entries,route",
     [
-        ("1", "1", "realign_fused_int", "v4_dp"),
-        ("0", "1", "realign_fused_int", "v3"),
-        ("1", "0", "realign_fill_sub", "v4_dp"),
+        ("1", "1", {"realign_fused_int"}, "v4_dp"),
+        ("0", "1", {"realign_fused_int"}, "v3"),
+        ("1", "0", _SPLIT_ROUTE, "v4_dp"),
     ],
     ids=["v4", "v3", "v4-split-route"],
 )
-def test_fused_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch, fused_event, pallas_fused, entry, route):
+def test_fused_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch, fused_event, pallas_fused, entries, route):
     """The fused lane (PANVC3_ENGINE_LANE=fused: the object path through
     the v4 engine, or v3 under PANVC3_FUSED_EVENT=0), card vs CPU, on the
     mixed reads, whose runs fit the engines' 16x16 DP; K1 launches, or K2
-    under PANVC3_PALLAS_FUSED=0."""
+    and the traceback kernel under PANVC3_PALLAS_FUSED=0."""
     from panvc3_tpu_torch import synth
     from panvc3_tpu_torch.ops import _kernels, engine
     from panvc3_tpu_torch.pipeline.project_alignments import (
@@ -502,7 +507,7 @@ def test_fused_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch, fused_event
         launched = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()}
         assert engine.FUSED_ROUTES[route] > 0, engine.FUSED_ROUTES
         if dev == "cuda":
-            assert {k for k, v in launched.items() if v} == {entry}, launched
+            assert {k for k, v in launched.items() if v} == entries, launched
         else:
             assert not any(launched.values()), launched
     assert outs["cuda"] == outs["cpu"]
@@ -510,7 +515,7 @@ def test_fused_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch, fused_event
 
 def test_projection_step_on_card_matches_cpu(cuda):
     """projection_step: the rewrite math over the device gap index and K2
-    plus the plain traceback, card vs CPU."""
+    plus the traceback kernel, card vs CPU."""
     from panvc3_tpu_torch.bitvec import GapBitVector
     from panvc3_tpu_torch.ops import _kernels
     from panvc3_tpu_torch.ops.forward import projection_step
@@ -534,13 +539,13 @@ def test_projection_step_on_card_matches_cpu(cuda):
     out = {}
     for d in ("cpu", cuda):
         index = DeviceGapIndex.build(vectors, device=d)
-        before = _kernels.LAUNCHES["realign_fill_sub"]
+        before = {k: _kernels.LAUNCHES[k] for k in _SPLIT_ROUTE}
         out[d] = [t.cpu() for t in projection_step(
             index, ref_flat, batch.src_seq, batch.dst_seq, batch.rec_src_pos, batch.ref_off,
             batch.ops, batch.counts, batch.query, run_ref, run_query, rl, ql,
             np.float32(-6), np.float32(-1), R=64, run_r=run_r, run_q=run_q,
         )]
-        assert _kernels.LAUNCHES["realign_fill_sub"] == before + (d == cuda)
+        assert all(_kernels.LAUNCHES[k] == before[k] + (d == cuda) for k in _SPLIT_ROUTE)
     for g, w in zip(out[cuda], out["cpu"]):
         assert torch.equal(g, w)
 

@@ -615,9 +615,10 @@ def run(work):
     sam_path.write_bytes(synth.reads_sam("chr21", founders, n_reads, 6))
     tool = chip_smoke.Tool("cpu rehearsal", work, index_path, fasta_path, device="cpu")
     dev_sam, *_ = tool.run("int-device", {"PANVC3_HOST_DP": "0"}, sam_path, expect=n_reads)
-    used = {"realign_fused_int": 0, "realign_fill_sub": 0}
+    used = {"realign_fused_int": 0, "realign_fill_sub": 0, "realign_traceback": 0}
     routes = chip_smoke.phase_fused(tool, sam_path, dev_sam, used, n_reads=512, batch=64)
-    assert used == {"realign_fused_int": 0, "realign_fill_sub": 0}  # no card: no launch
+    # no card: no launch
+    assert used == {"realign_fused_int": 0, "realign_fill_sub": 0, "realign_traceback": 0}
     assert routes["fused-b-even"]["v4_dp"] > 0, routes
     assert routes["fused-c-v3"]["v3"] > 0, routes
     assert not any(m == "jax" or m.startswith(("jax.", "panvc3_tpu.")) for m in sys.modules)

@@ -712,7 +712,8 @@ def run(work):
              chip_smoke.head_sam(q_sam_path, work / "reads_q_head.sam", n_obj))
     obj = tool.run("int-object", device, heads[0], fastlane=False, expect=n_obj)[0]
     q_obj = tool.run("q-object", device, heads[1], quality=True, fastlane=False, expect=n_obj)[0]
-    used = {"realign_fused_int": 0, "realign_fused_qual": 0, "realign_fill_sub": 0}
+    used = {"realign_fused_int": 0, "realign_fused_qual": 0, "realign_fill_sub": 0,
+            "realign_traceback": 0}
     routes = chip_smoke.phase_fused(tool, sam_path, dev_sam, used, n_reads=n_obj, batch=64)
     chip_smoke.phase_mesh(
         tool, heads, (obj, q_obj), work / "reads_fused_even.sam",

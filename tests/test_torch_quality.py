@@ -375,7 +375,7 @@ def test_cli_quality_device_lane_matches_jax(msa_files, founder_seqs, tmp_path):
     # every entry is counted, and none launches on CPU tensors
     assert diag["kernel_launches"] == {
         "realign_fused_int": 0, "realign_fused_qual": 0,
-        "realign_fused_sub": 0, "realign_fill_sub": 0,
+        "realign_fused_sub": 0, "realign_fill_sub": 0, "realign_traceback": 0,
     }
     assert "Matched reads:     160" in err
     # the qualities were used: the integer run differs
