@@ -20,11 +20,18 @@ Phases, in order; any failure raises and exits non-zero:
    reference-quality tile, its integer entry also on 4096 full runs of
    16x16 (the fused engines' slot pool) and 8192 runs of up to 64x64 (the
    object path's padded 48I48D runs), K2's fill on the three shapes of
-   K1's two entries and at the edges of its schedule (every trace cell),
-   the traceback kernel on K2's traces at those three shapes and edges
-   (every op and count), and the locked tie-break fixtures (integer ones
+   K1's two entries, on 512 runs of 16x16 (the fused engines' split
+   route) and at the edges of its schedule (every trace cell), the
+   traceback kernel on K2's traces at those shapes and edges and at its
+   own plan's edges (TB_EDGE_CASES: both schedules, B = 1 and 77, offset
+   views, random-byte traces with lengths inside and around the run;
+   every op and count), and the locked tie-break fixtures (integer ones
    through K1, quality ones through K1's quality entry and through K2
-   plus the traceback kernel).  A bound is the larger of the operations
+   plus the traceback kernel).  Each traceback row prints its time with
+   L2 warm and flushed (a 64 MiB write before each launch), its plan
+   (runs per group, walking warps, shared bytes, schedule) and the bytes it
+   staged with their rate.  Timed loops are queued behind a sleep kernel,
+   so that they measure device time.  A bound is the larger of the operations
    the inputs need (12 f32 operations per DP cell, at 33.5 T op/s: the
    H100's 67 TFLOP/s FP32 counts an FMA as two; 20 integer operations per
    traceback step, at 16.75 T op/s, half the FP32 lanes) and the bytes
@@ -267,6 +274,19 @@ def tb_need(ops, count) -> tuple[int, int, float]:
     return steps * TB_STEP_OPS, moved, INT_OPS_PER_S
 
 
+def tb_staged(m, n, Q: int, R: int, plan: dict) -> int:
+    """Bytes the traceback kernel moves into shared memory (0 on its global
+    schedule): each run's trace up to its walk's first flat index
+    m*(R+1)+n (none where that is negative, the whole tile where it is
+    past it), and every ref and query row."""
+    if not plan["shared"]:
+        return 0
+    cells = (Q + 1) * (R + 1)
+    first = m.long() * (R + 1) + n.long()
+    trace = int((first.clamp(max=cells - 1) + 1).clamp(min=0).sum())
+    return trace + len(m) * (R + Q)
+
+
 def fixture_runs(quality: bool):
     """Tie-break fixtures grouped by gap costs: (go, ge, [ref, query, m,
     n] on the card, query phreds or None, R, Q, locked CIGARs)."""
@@ -321,17 +341,46 @@ def check_cigars(ops, cnt, cigars, what: str) -> None:
             raise AssertionError(f"{what}, fixture {b}: {got} != {want}")
 
 
+# cycles of the sleep kernel ahead of a timed loop (~10-20 ms): the host
+# queues the loop's launches behind it, so that the span between the events
+# holds device time, not the host's launch overhead
+QUEUE_SLEEP_CYCLES = 20_000_000
+L2_FLUSH_BYTES = 64 << 20  # written before each flushed launch: above the 50 MB L2
+
+
 def time_ms(fn, iters: int) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls back to back."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def time_flushed_ms(fn, iters: int, flush) -> float:
+    """Mean device ms of ``fn`` with the L2 cache flushed before each call:
+    ``flush`` (``L2_FLUSH_BYTES`` on the card) is written between calls,
+    outside each call's pair of events."""
+    import torch
+
+    spans = []
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    for k in range(iters):
+        flush.fill_(k & 0x7F)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        spans.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / iters
 
 
 def compare(name, shape, kernel, plain, card, results, need) -> None:
@@ -430,7 +479,154 @@ def k2_edge_lengths(rng, B: int, Q: int, R: int):
     return m, n
 
 
-def check_k2_edges(rng) -> None:
+# (B, Q, R, trace, lengths, offset) at the edges of the traceback kernel's
+# plan (realign_traceback.cu): K2's trace ("fill", integer scores) or
+# random bytes ("bytes": all four moves, both open bits, high bits set);
+# lengths inside the run ("in", the first runs full, m = 0, n = 0 and
+# both 0) or around it ("out": m in -5..Q+9, n in -5..R+9); ``offset``:
+# views at an offset (trace[1:], ref[1:], ... of B+1 runs).  B = 1, B not
+# a multiple of the runs per group (22 at 48x48), R+1 odd, two buffers of
+# one run (300x300) and the global schedule (400x400: two buffers do not
+# fit)
+TB_EDGE_CASES = [
+    (1, 48, 48, "fill", "in", False),
+    (77, 48, 48, "fill", "in", False),
+    (33, 7, 29, "fill", "in", False),
+    (78, 48, 48, "fill", "in", True),
+    (7, 300, 300, "fill", "in", False),
+    (9, 400, 400, "fill", "in", False),
+    (77, 48, 48, "bytes", "in", False),
+    (77, 48, 48, "bytes", "out", True),
+    (512, 16, 16, "bytes", "out", False),
+    (40, 6, 7, "bytes", "out", False),
+    (7, 300, 300, "bytes", "out", False),
+    (9, 400, 400, "bytes", "out", True),
+]
+
+
+def tb_edge_case(rng, case, device):
+    """(trace, ref, query, m, n) of one ``TB_EDGE_CASES`` entry on
+    ``device`` (K2's fill on a card, the plain fill on the CPU)."""
+    import numpy as np
+    import torch
+
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops.realign_pallas import fill_batch
+
+    B, Q, R, trace_kind, lengths, offset = case
+    B += offset
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.choice(letters, (B, R)).astype(np.uint8)
+    qry = rng.choice(letters, (B, Q)).astype(np.uint8)
+    if lengths == "in":
+        m = rng.integers(0, Q + 1, B).astype(np.int32)
+        n = rng.integers(0, R + 1, B).astype(np.int32)
+        k = min(B, 4)
+        m[:k] = [Q, 0, Q, 0][:k]
+        n[:k] = [R, R, 0, 0][:k]
+    else:
+        m = rng.integers(-5, Q + 10, B).astype(np.int32)
+        n = rng.integers(-5, R + 10, B).astype(np.int32)
+    ref_t, qry_t, m_t, n_t = (torch.from_numpy(a).to(device) for a in (ref, qry, m, n))
+    if trace_kind == "fill":
+        sub = trb._substitution_scores(ref_t, qry_t).contiguous()
+        trace = fill_batch(sub, m_t, n_t, -6.0, -1.0, R, Q)
+    else:
+        trace = torch.from_numpy(rng.integers(0, 256, (B, Q + 1, R + 1), dtype=np.uint8)).to(device)
+    args = (trace, ref_t, qry_t, m_t, n_t)
+    return tuple(a[1:] for a in args) if offset else args
+
+
+def traceback_row(label, args, R: int, Q: int, card, flush, check=True, warm=None) -> None:
+    """The traceback kernel on ``args`` (trace, ref, query, m, n on the
+    card), byte-equal to the plain ``_traceback_batch`` (``check``; else
+    the caller has just compared them), timed with L2 warm (20 launches
+    back to back on one trace, which then stays in the L2 where it fits,
+    as after K2 on the split route; ``warm`` where the caller timed it) and
+    with it flushed (10 launches, ``flush`` written before each), beside
+    its bound, its plan and the bytes it staged with their rate."""
+    import torch
+
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops.realign_traceback import traceback_batch, traceback_plan
+
+    trace, ref, qry, m, n = args
+
+    def kernel():
+        return traceback_batch(trace, ref, qry, m, n, R, Q)
+
+    ops, cnt = kernel()
+    if check:
+        want_ops, want_cnt = trb._traceback_batch(trace, ref, qry, m, n, R, Q)
+        if not (torch.equal(ops, want_ops) and torch.equal(cnt, want_cnt)):
+            raise AssertionError(f"realign_traceback != plain version: {label}")
+    n_ops, read, rate = tb_need(ops, cnt)
+    moved = read + nbytes(ops, cnt)
+    b_ms, b_by = bound_ms(n_ops, moved, rate)
+    warm = time_ms(kernel, 20) if warm is None else warm
+    cold = time_flushed_ms(kernel, 10, flush)
+    plan = traceback_plan(trace.shape[0], R, Q)
+    staged = tb_staged(m, n, Q, R, plan)
+    if plan["shared"]:
+        how = (
+            f"plan: shared memory, {plan['runs']} runs per group, {plan['warps']} walking "
+            f"warps with a buffer each, {plan['smem_bytes']} B per block, "
+            f"{plan['blocks']} blocks; staged {staged} B, {staged / warm / 1e6:.1f} GB/s "
+            f"warm, {staged / cold / 1e6:.1f} GB/s flushed"
+        )
+    else:
+        how = f"plan: global schedule, {plan['blocks']} blocks of {plan['threads']}; nothing staged"
+    log(
+        f"[traceback] {label}: == plain (byte-equal); warm {warm:.4f} ms, L2 flushed "
+        f"{cold:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {n_ops} ops, {moved} bytes), "
+        f"{b_ms / warm:.1%} of bound warm, {b_ms / cold:.1%} flushed; {how} ({card})"
+    )
+
+
+def check_tb_edges(rng, card, flush) -> None:
+    """The traceback kernel byte-equal to the plain version on every
+    ``TB_EDGE_CASES`` entry."""
+    for case in TB_EDGE_CASES:
+        B, Q, R, trace_kind, lengths, offset = case
+        label = (
+            f"edge B,Q,R={(B, Q, R)}, {'K2 trace' if trace_kind == 'fill' else 'random bytes'}, "
+            f"lengths {'in the run' if lengths == 'in' else 'around the run'}"
+            f"{', offset views' if offset else ''}"
+        )
+        traceback_row(label, tb_edge_case(rng, case, "cuda"), R, Q, card, flush)
+    log(f"[kernel] traceback edge cases: {len(TB_EDGE_CASES)} cases == plain version, byte-equal")
+
+
+def split_route_rows(shape, args, sub, go, ge, card, results, flush) -> None:
+    """K2's fill on ``sub`` and the traceback kernel on its trace, each
+    against its plain version, as the split route runs them."""
+    from panvc3_tpu_torch.ops import realign_batch as trb
+    from panvc3_tpu_torch.ops.realign_pallas import fill_batch
+    from panvc3_tpu_torch.ops.realign_traceback import traceback_batch
+
+    _, Q, R, _ = shape
+    ref, qry, m, n = args
+    compare(
+        "realign_fill_sub", shape,
+        lambda: (fill_batch(sub, m, n, go, ge, R, Q),),
+        lambda: (trb._fill_batch(sub, m, n, go, ge, R, Q),),
+        card, results, k2_need(m, n, Q, R),
+    )
+    trace = fill_batch(sub, m, n, go, ge, R, Q)
+    ops, count = traceback_batch(trace, ref, qry, m, n, R, Q)
+    compare(
+        "realign_traceback", shape,
+        lambda: traceback_batch(trace, ref, qry, m, n, R, Q),
+        lambda: trb._traceback_batch(trace, ref, qry, m, n, R, Q),
+        card, results, tb_need(ops, count),
+    )
+    traceback_row(
+        f"B,Q,R={shape[:3]} {shape[3]} lengths, on K2's trace", (trace, ref, qry, m, n), R, Q,
+        card, flush, check=False, warm=results["realign_traceback"]["timing"][shape][0],
+    )
+
+
+def check_k2_edges(rng, card, flush) -> None:
     """K2 byte-equal to the plain fill in every trace cell at every edge
     shape, with integer and Malde scores; then the traceback kernel on each
     of K2's traces byte-equal to the plain traceback, with the lengths
@@ -463,6 +659,10 @@ def check_k2_edges(rng) -> None:
                 raise AssertionError(
                     f"traceback kernel != plain version at B,Q,R={B, Q, R}, {scores} scores"
                 )
+            traceback_row(
+                f"K2 edge B,Q,R={(B, Q, R)}, {scores} scores", (got, ref, qry, mc, nc), R, Q,
+                card, flush, check=False,
+            )
     log(
         f"[kernel] K2 edge shapes: {len(K2_EDGE_SHAPES)} shapes x 2 scorings "
         "(integer, Malde) == plain version in every trace cell; the traceback "
@@ -486,6 +686,7 @@ def phase_kernels(card: str) -> dict:
     results: dict = {}
     rows = trb.malde_rows("cuda")
     kgo, kge = 0.0, -1.0 * MALDE_SCALE  # the CLI's gap costs, -q units
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for B, Q, R, full in ((16384, 48, 48, True), (16384, 48, 48, False), (2048, 128, 128, False)):
         shape = (B, Q, R, "full" if full else "random")
         args = random_runs(rng, B, Q, R, full)
@@ -504,24 +705,17 @@ def phase_kernels(card: str) -> dict:
             lambda: realign_fused_reference(*args, kgo, kge, R, Q, qual=qual),
             card, results, k1_need(m, n, Q, R, "qual"),
         )
+        # K2 and the traceback on its trace, as the -q split route runs them
         sub = trb._qual_scores(ref, qry, *qual)
-        compare(
-            "realign_fill_sub", shape,
-            lambda: (fill_batch(sub, m, n, kgo, kge, R, Q),),
-            lambda: (trb._fill_batch(sub, m, n, kgo, kge, R, Q),),
-            card, results, k2_need(m, n, Q, R),
-        )
-        # the traceback on K2's trace, as the split route runs it
-        trace = fill_batch(sub, m, n, kgo, kge, R, Q)
+        split_route_rows(shape, args, sub, kgo, kge, card, results, flush)
         del sub
-        ops, count = traceback_batch(trace, ref, qry, m, n, R, Q)
-        compare(
-            "realign_traceback", shape,
-            lambda: traceback_batch(trace, ref, qry, m, n, R, Q),
-            lambda: trb._traceback_batch(trace, ref, qry, m, n, R, Q),
-            card, results, tb_need(ops, count),
-        )
-        del trace
+    # the fused engines' split route (phase 9 d): batches of 512 runs of
+    # 16x16 with integer scores
+    for full in (True, False):
+        args = random_runs(rng, 512, 16, 16, full)
+        sub = trb._substitution_scores(args[0], args[1]).contiguous()
+        shape = (512, 16, 16, "full" if full else "random")
+        split_route_rows(shape, args, sub, 0.0, -1.0, card, results, flush)
     # K1's integer entry where the fused engines launch it (their slot pool
     # of 16x16 runs for 8192-record batches) and where the object path and
     # the fused lane's host path launch it (48I48D runs padded to 64x64)
@@ -545,7 +739,8 @@ def phase_kernels(card: str) -> dict:
         card, results, k1_need(args[2], args[3], Q, R, "sub"),
     )
     check_k1_edges(rng, rows)
-    check_k2_edges(rng)
+    check_k2_edges(rng, card, flush)
+    check_tb_edges(rng, card, flush)
 
     n_fix = 0
     for go, ge, args, _, R, Q, cigars in fixture_runs(quality=False):
@@ -575,6 +770,10 @@ def phase_kernels(card: str) -> dict:
         if not (torch.equal(ops, want_ops) and torch.equal(cnt, want_cnt)):
             raise AssertionError(f"realign_traceback != plain version on fixtures go={go} ge={ge}")
         check_cigars(ops, cnt, cigars, f"realign_fill_sub + realign_traceback go={go} ge={ge}")
+        traceback_row(
+            f"{len(cigars)} quality fixtures go={go} ge={ge}", (trace, ref, qry, m, n), R, Q,
+            card, flush, check=False,
+        )
         n_fix += len(cigars)
     log(
         f"[kernel] {n_fix} quality tie-break fixtures: realign_fused_qual == plain, "

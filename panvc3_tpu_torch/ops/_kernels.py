@@ -72,6 +72,7 @@ LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 _HELPERS = {
     "realign_fused_scratch": ("realign_fused.cu", [_I, _I, _I]),
     "realign_fill_scratch": ("realign_fill.cu", [_I]),
+    "realign_traceback_plan": ("realign_traceback.cu", [_I, _I, _I, _P]),
 }
 
 

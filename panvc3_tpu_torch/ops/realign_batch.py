@@ -165,21 +165,34 @@ def _traceback_batch(trace, ref, query, m, n, R: int, Q: int):
     (ops int8 (B, R+Q), count int32 (B,)): op k is emitted at step k, and
     steps past the end of the walk emit the 127 filler.  The plain version
     of the traceback kernel (``realign_traceback.traceback_batch``), which
-    runs it on CPU tensors, and the reference for it on the card."""
+    runs it on CPU tensors, and the reference for it on the card.
+
+    As the scan's one-hot sums, an index outside the run reads 0: a flat
+    cell index outside ``[0, (Q+1)*(R+1))`` (a column past R aliases into
+    the next row), a query index outside ``[0, Q)`` and a reference index
+    outside ``[0, R)``.  The split route's lengths never reach them; a
+    trace of arbitrary bytes, or ``m``, ``n`` outside the run, do."""
     B = trace.shape[0]
     dev = trace.device
     stride = R + 1
-    flat = trace.reshape(B, -1).to(torch.int64)
+    cells = (Q + 1) * stride
+    zero = torch.zeros((B, 1), dtype=torch.uint8, device=dev)
+    # each row padded with one 0, the value every index outside it reads
+    flat = torch.cat([trace.reshape(B, -1), zero], 1).to(torch.int64)
+    qpad = torch.cat([query, zero], 1)
+    rpad = torch.cat([ref, zero], 1)
+
+    def inside(idx, size: int):
+        return torch.where((idx >= 0) & (idx < size), idx, size)[:, None]
+
     i = m.to(torch.int64)
     j = n.to(torch.int64)
     state = torch.zeros(B, dtype=torch.int64, device=dev)
     k = torch.zeros(B, dtype=torch.int64, device=dev)
-    qpad = torch.cat([query, torch.zeros((B, 1), dtype=query.dtype, device=dev)], 1)
-    rpad = torch.cat([ref, torch.zeros((B, 1), dtype=ref.dtype, device=dev)], 1)
     emits = []
     for _ in range(R + Q):
         done = (i == 0) & (j == 0)
-        cell = flat.gather(1, (i * stride + j)[:, None])[:, 0]
+        cell = flat.gather(1, inside(i * stride + j, cells))[:, 0]
         tr = cell & 3
         vopen = (cell >> 2) & 1
         hopen = (cell >> 3) & 1
@@ -193,10 +206,8 @@ def _traceback_batch(trace, ref, query, m, n, R: int, Q: int):
         is_vert = (eff == _TR_VERT) & ~done
         is_horiz = (eff == _TR_HORIZ) & ~done
 
-        # a diagonal step always has i, j >= 1; elsewhere the index -1
-        # wraps to the zero padding column and the compare is unused
-        qc = qpad.gather(1, ((i - 1) % (Q + 1))[:, None])[:, 0]
-        rc = rpad.gather(1, ((j - 1) % (R + 1))[:, None])[:, 0]
+        qc = qpad.gather(1, inside(i - 1, Q))[:, 0]
+        rc = rpad.gather(1, inside(j - 1, R))[:, 0]
         op = torch.where(
             is_diag,
             torch.where(qc == rc, _EQ, _X),

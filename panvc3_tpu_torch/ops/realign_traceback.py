@@ -8,10 +8,13 @@ hand-written CUDA kernel (``csrc/realign_traceback.cu``, C entry
 ``realign_batch._traceback_batch`` on CPU tensors; on any other device it
 raises.  Both return ``(ops int8[B, R+Q], count int32[B])``, equal in every
 element: op k emitted at step k of the walk (the CIGAR reversed), 127 from
-the step that finds the walk at (0, 0).
+the step that finds the walk at (0, 0).  ``traceback_plan`` reads the
+kernel's plan for a shape (its schedule, runs per group, walking warps).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,3 +62,21 @@ def traceback_batch(trace, ref, query, m, n, R: int, Q: int):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return ops, count
+
+
+#: the fields of ``traceback_plan``, in the C helper's order
+PLAN_FIELDS = ("shared", "runs", "warps", "smem_bytes", "blocks", "threads")
+
+
+def traceback_plan(B: int, R: int, Q: int, device="cuda") -> dict:
+    """The plan the kernel takes for ``B`` runs of ``(Q+1, R+1)`` on the
+    card ``device``: ``shared`` 1 for the shared-memory schedule (0: the
+    global one), its runs per group, walking warps per block (each with a
+    buffer of its own in the ring) and shared bytes per block, then blocks
+    and threads per block.  Launches nothing."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    with torch.cuda.device(torch.device(device)):
+        rc = _kernels.kernel("realign_traceback_plan")(B, R, Q, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"realign_traceback_plan failed: cudaError {rc}")
+    return dict(zip(PLAN_FIELDS, out))

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K2_EDGE_SHAPES, k2_edge_lengths
+from chip_smoke import K2_EDGE_SHAPES, TB_EDGE_CASES, k2_edge_lengths, tb_edge_case
 from panvc3_tpu_torch.align import MALDE_SCALE
 from panvc3_tpu_torch.ops import _kernels
 from panvc3_tpu_torch.ops import realign_batch as trb
@@ -157,6 +157,70 @@ def test_split_route_dp_matches_jax(jax_ops, monkeypatch, quality):
     assert np.array_equal(cnt.numpy(), np.asarray(j_cnt))
 
 
+def _random_bytes(rng, B, Q, R, lengths):
+    """[trace, ref, query, m, n] as numpy: a trace of random bytes (every
+    move value, both open bits, the high bits set), ref and query of
+    random bytes, and lengths inside the run (``in``) or past it: m > Q,
+    n > R, m < 0, or all of them around the run."""
+    trace = rng.integers(0, 256, (B, Q + 1, R + 1), dtype=np.uint8)
+    ref = rng.integers(0, 256, (B, R), dtype=np.uint8)
+    qry = rng.integers(0, 256, (B, Q), dtype=np.uint8)
+    m = rng.integers(0, Q + 1, B).astype(np.int32)
+    n = rng.integers(0, R + 1, B).astype(np.int32)
+    if lengths == "m>Q":
+        m = rng.integers(Q + 1, Q + 10, B).astype(np.int32)
+    elif lengths == "n>R":
+        n = rng.integers(R + 1, R + 10, B).astype(np.int32)
+    elif lengths == "m<0":
+        m = rng.integers(-6, 0, B).astype(np.int32)
+    elif lengths == "around":
+        m = rng.integers(-5, Q + 10, B).astype(np.int32)
+        n = rng.integers(-5, R + 10, B).astype(np.int32)
+    return trace, ref, qry, m, n
+
+
+def _jax_traceback(jax_ops, trace, ref, qry, m, n, R, Q):
+    jrb, jnp = jax_ops
+    ops, cnt = jrb._traceback_batch(*(jnp.asarray(np.asarray(a)) for a in (trace, ref, qry, m, n)), R, Q)
+    return np.asarray(ops), np.asarray(cnt)
+
+
+@pytest.mark.parametrize("lengths", ["in", "m>Q", "n>R", "m<0", "around"])
+@pytest.mark.parametrize("B,Q,R", [(64, 6, 7), (40, 16, 16), (24, 48, 48), (12, 1, 9)])
+def test_plain_matches_jax_on_random_bytes(jax_ops, B, Q, R, lengths):
+    """The plain ``_traceback_batch`` against JAX's scan on traces of random
+    bytes, with lengths inside and outside the contract: the semantics the
+    kernel keeps (a flat index outside the run's trace, and a query or
+    reference index outside its row, reads 0; move 3 emits D and stays)."""
+    rng = np.random.default_rng(B * 100 + Q * 10 + R + len(lengths))
+    trace, ref, qry, m, n = _random_bytes(rng, B, Q, R, lengths)
+    assert set(np.unique(trace & 3)) == {0, 1, 2, 3}
+    assert (trace & 4).any() and (trace & 8).any()
+    want_ops, want_cnt = _jax_traceback(jax_ops, trace, ref, qry, m, n, R, Q)
+    ops, cnt = trb._traceback_batch(*(_t(a) for a in (trace, ref, qry, m, n)), R, Q)
+    assert np.array_equal(ops.numpy(), want_ops)
+    assert np.array_equal(cnt.numpy(), want_cnt)
+
+
+# the kernel plan's edge cases small enough for JAX's scan on the CPU
+_CPU_EDGE_CASES = [c for c in TB_EDGE_CASES if c[1] <= 64 and c[2] <= 64]
+
+
+@pytest.mark.parametrize("case", _CPU_EDGE_CASES, ids=str)
+def test_plain_matches_jax_at_plan_edges(jax_ops, case):
+    """``traceback_batch`` on CPU tensors (the plain version) against JAX's
+    scan on the kernel plan's edge cases (``chip_smoke.TB_EDGE_CASES``):
+    B = 1, B not a multiple of the runs per group, R+1 odd, views at an
+    offset, random bytes with lengths around the run."""
+    B, Q, R = case[:3]
+    args = tb_edge_case(np.random.default_rng(B + Q + R), case, "cpu")
+    assert args[0].shape == (B, Q + 1, R + 1)
+    want_ops, want_cnt = _jax_traceback(jax_ops, *args, R, Q)
+    ops, cnt = traceback_batch(*args, R, Q)
+    assert np.array_equal(ops.numpy(), want_ops)
+    assert np.array_equal(cnt.numpy(), want_cnt)
+
+
 def test_traceback_batch_checks_its_inputs():
     """A wrong dtype, shape, device or layout raises; so does a device
     other than the CPU or CUDA (no plain walk runs there)."""
@@ -216,6 +280,21 @@ def test_kernel_entry_matches_its_binding():
     assert "realign_traceback" in _kernels.LAUNCHES
 
 
+def test_plan_helper_matches_its_binding():
+    """The plan helper's C parameters are its ctypes signature's, it is not
+    counted as a launch, and it fills one int per ``PLAN_FIELDS`` entry."""
+    from panvc3_tpu_torch.ops.realign_traceback import PLAN_FIELDS
+
+    source, argtypes = _kernels._HELPERS["realign_traceback_plan"]
+    assert source == SOURCE.name
+    text = SOURCE.read_text()
+    params = re.search(r'extern "C" int realign_traceback_plan\(([^)]*)\)', text).group(1)
+    kinds = ["int" if p.split()[0] == "int" else "ptr" for p in params.split(",")]
+    assert kinds == ["int" if a is _kernels._I else "ptr" for a in argtypes]
+    assert "realign_traceback_plan" not in _kernels.LAUNCHES
+    assert f"v[{len(PLAN_FIELDS)}]" in text
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -273,3 +352,36 @@ def test_chip_smoke_split_route_phase_on_cpu(tmp_path, monkeypatch, capsys):
     assert chip_smoke.strip_pg(q_split) == chip_smoke.strip_pg(q_dev)
     assert used == {"realign_fill_sub": 0, "realign_traceback": 0}
     assert "[slice] -q split route" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TB_EDGE_CASES, ids=str)
+def test_kernel_at_plan_edges(cuda, case):
+    """The kernel against the plain version at the plan's edges: both
+    schedules, B = 1 and 77, offset views, random-byte traces with lengths
+    inside and around the run; one launch each."""
+    B, Q, R = case[:3]
+    args = tb_edge_case(np.random.default_rng(B * 3 + Q + R), case, cuda)
+    before = _kernels.LAUNCHES["realign_traceback"]
+    ops, cnt = traceback_batch(*args, R, Q)
+    assert _kernels.LAUNCHES["realign_traceback"] == before + 1
+    want_ops, want_cnt = trb._traceback_batch(*args, R, Q)
+    torch.cuda.synchronize()
+    assert torch.equal(ops, want_ops)
+    assert torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.cuda
+def test_kernel_plan(cuda):
+    """The plan: the window's 48x48 runs in groups of 22, four walking warps
+    on a buffer each; one 300x300 run on each of two; 400x400 on the global
+    schedule."""
+    from panvc3_tpu_torch.ops.realign_traceback import traceback_plan
+
+    window = traceback_plan(16384, 48, 48)
+    assert (window["shared"], window["runs"], window["warps"]) == (1, 22, 4)
+    assert 0 < window["smem_bytes"] <= 232448 and window["threads"] == 160
+    assert 0 < window["blocks"] <= -(-16384 // 22)
+    big = traceback_plan(7, 300, 300)
+    assert (big["shared"], big["runs"], big["warps"]) == (1, 1, 2)
+    assert traceback_plan(9, 400, 400)["shared"] == 0
