@@ -39,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..alphabet import decode_phred42, normalise_dna5
 from ..cigar import CODE_TO_OP, collapse_cigar
 from ..indel_runs import IndelRun, find_indel_runs
@@ -366,9 +367,10 @@ class BatchProjector:
 
     def _ref_flat_dev_locked(self) -> torch.Tensor:
         if self._ref_flat is None:
-            self._ref_flat = torch.from_numpy(
-                self._ref_flat_host.copy()
-            ).to(self.device)
+            with tracing.span("setup_reference_upload"):
+                self._ref_flat = torch.from_numpy(
+                    self._ref_flat_host.copy()
+                ).to(self.device)
         return self._ref_flat
 
     @property

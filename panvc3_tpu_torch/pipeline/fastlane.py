@@ -42,6 +42,7 @@ import time as _time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..align import MALDE_SCALE, malde_tables
 from ..native import get_native
 from ..ops import _kernels
@@ -77,17 +78,20 @@ from ..utils import StatusReporter, format_duration, log_time
 
 FLAG_SKIP = 0x4 | 0x200 | 0x400  # unmapped | QC fail | duplicate
 
-# PANVC3_FASTLANE_PROF=1: per-stage wall-time totals and the aggregate
-# diagnostics printed at the end of the run
-_PROF = os.environ.get("PANVC3_FASTLANE_PROF") == "1"
-
-# Diagnostics (read by tests and PANVC3_FASTLANE_PROF reporting): counts
-# of aggregate dispatches and of the wire/layout variants that engaged
-# (mutated only on the writer thread), and of batches whose device rewrite
-# geometry overflowed (``geometry_overflow``, under _DIAG_LOCK).
+# Diagnostics (read by tests and printed as the [fastlane diag] line under
+# PANVC3_FASTLANE_PROF=1), process-wide running totals: counts of
+# aggregate dispatches and of the wire/layout variants that engaged, the
+# realignment runs and their cells (rl x ql) by lane (``dp_runs_host``,
+# ``dp_cells_host``, ``dp_runs_dev``, ``dp_cells_dev``) and the cells the
+# device lane's kernels compute, padding included
+# (``dp_cells_dev_launched``), all mutated only on the writer thread; and
+# of batches whose device rewrite geometry overflowed
+# (``geometry_overflow``, under _DIAG_LOCK).
 AGG_DIAG = {
     "dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0,
     "geometry_overflow": 0,
+    "dp_runs_host": 0, "dp_cells_host": 0, "dp_runs_dev": 0, "dp_cells_dev": 0,
+    "dp_cells_dev_launched": 0,
 }
 _DIAG_LOCK = threading.Lock()
 
@@ -452,11 +456,12 @@ def run_fast(
     # over the device gap index (=0)
     event_geo = dev_event = dev_event_host = None
     ev_mode = os.environ.get("PANVC3_EVENT_GEOMETRY", "1")
-    if ev_mode == "device":
-        dev_event_host = EventGeometry(src_entries, dst_entries, ref_id_mapping)
-        dev_event = DeviceEventGeometry(dev_event_host, device)
-    elif ev_mode != "0":
-        event_geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
+    with tracing.span("setup_event_tables"):
+        if ev_mode == "device":
+            dev_event_host = EventGeometry(src_entries, dst_entries, ref_id_mapping)
+            dev_event = DeviceEventGeometry(dev_event_host, device)
+        elif ev_mode != "0":
+            event_geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
 
     refmap = {name.encode(): i for i, name in enumerate(input_header.ref_names)}
     rim = np.asarray(ref_id_mapping, dtype=np.int32)
@@ -536,15 +541,8 @@ def run_fast(
         "task_counter": 0,  # 4-record task groups emitted
         "realign_fetch_ns": 0,  # fetch half of the realignment timing
         "realign_stage_ns": 0,  # staging/dispatch half (folded at emit)
+        "batches": 0,  # batch ids, in submission order (the spans' batch)
     }
-    prof: dict[str, float] = {}
-    _prof_lock = threading.Lock()
-
-    def _tick(key: str, t0: float) -> float:
-        t1 = _time.perf_counter()
-        with _prof_lock:
-            prof[key] = prof.get(key, 0.0) + (t1 - t0)
-        return t1
 
     def realign_status() -> str:
         n = stats.realigned_range_count
@@ -567,7 +565,7 @@ def run_fast(
     if cfg.threaded_pipeline:
         from concurrent.futures import ThreadPoolExecutor
 
-        fetch_pool = ThreadPoolExecutor(max_workers=4)
+        fetch_pool = ThreadPoolExecutor(max_workers=4, thread_name_prefix="fastlane-fetch")
 
     # Flat-reference ingestion for the ref-gather wires: grow-only
     # accumulation of the contigs batches reference, rebuilt when pending
@@ -606,91 +604,18 @@ def run_fast(
                 and _rg_state["idle"] < 4
             ):
                 return  # defer the rebuild while new contigs keep arriving
-            bp._ensure_refs(_rg_accum)
+            with tracing.span("setup_reference_flat"):
+                bp._ensure_refs(_rg_accum)
             _rg_state["flat"] = total
             _rg_state["pending"] = 0
             _rg_state["idle"] = 0
 
-    def start_batch(lines, rec_base, expect_nrec=None):
-        """Parse + stage, and launch the device rewrite geometry where one
-        runs; returns a context dict (kept == 0 when the whole block was
-        filtered out — the parse counter deltas still ride in it).  The
-        stat deltas are folded in emit()."""
-        t0 = _time.perf_counter() if _PROF else 0.0
-        # the device event kernel packs its gap bits 8 units per byte
-        staged = nat.parse_stage_batch(
-            lines, refmap, FLAG_SKIP, primary_mask,
-            4, 8 if dev_event is not None else 2, 2,
-        )
-        if _PROF:
-            t0 = _tick("parse_stage", t0)
-        if expect_nrec is not None and staged["n_records"] != expect_nrec:
-            raise RuntimeError(
-                "scan/parse record count mismatch: "
-                f"{staged['n_records']} != {expect_nrec}"
-            )
-        parse_stats = (
-            staged["flags_not_matched"],
-            staged["ref_id_missing"],
-            staged["seq_missing"],
-        )
-        kept = staged["kept"]
-        if kept == 0:
-            return {"kept": 0, "parse_stats": parse_stats}
-        fields = np.frombuffer(staged["fields"], np.int32).reshape(kept, 7)
-        ref_id = fields[:, 1]
-
-        if shard_check:
-            bad = src_dev[ref_id] < 0
-            if bad.any():
-                i = int(np.argmax(bad))
-                name = input_header.ref_names[int(ref_id[i])]
-                raise ValueError(
-                    f"record references {name!r}, which is outside this "
-                    "index shard (--msa-index-chr-shard); route the input "
-                    "with panvc3_split_alignments_by_reference first"
-                )
-        dst_rids = rim[ref_id]
-        snap = ref_seqs.require(int(r) for r in np.unique(dst_rids))
-        _ingest_refs(snap)
-
-        R = staged["R"]
-        fetch = fut = d_run = None
-        if event_geo is None:
-            # the device geometry, batch dimension bucketed as in
-            # BatchProjector.start_batch (padding rows copy the first)
-            n_pad = max(0, min(batch_size, next_pow2(kept)) - kept)
-            n_units = np.frombuffer(staged["n_ref_units"], np.int32)
-            if dev_event is not None:
-                rows = (
-                    _pad_rows(np.ascontiguousarray(a, dtype=np.int32), n_pad)
-                    for a in (ref_id, fields[:, 2], n_units)
-                )
-                wire, overflow = dev_event.kernel_wire(
-                    *(_to_device(a, device) for a in rows), R
-                )
-            else:
-                # one packed u8 input row per record (10 B)
-                packed_in = pack_gap_wire_input(
-                    np.ascontiguousarray(fields[:, 2]), n_units,
-                    src_dev[ref_id], dst_dev[dst_rids],
-                )
-                # d_run (int32, B x R) stays on the device unless the wire
-                # overflows
-                wire, overflow, d_run = rewrite_gap_kernel_wire(
-                    bp.index, _to_device(_pad_rows(packed_in, n_pad), device), R
-                )
-            fetch = DeviceFetch(wire, overflow)
-            if fetch_pool is not None:
-                fut = fetch_pool.submit(fetch.get)
-            if _PROF:
-                t0 = _tick("rewrite_dispatch", t0)
-
-        # host mate projection on the event prefix sums, per distinct mate
-        # reference (project_position); without event tables (=0) through
-        # the index entries
+    def project_mates(fields) -> np.ndarray:
+        """Host mate projection on the event prefix sums, per distinct mate
+        reference (project_position); without event tables (=0) through
+        the index entries."""
         geo = event_geo if event_geo is not None else dev_event_host
-        mate_dst = np.full(kept, -1, dtype=np.int32)
+        mate_dst = np.full(len(fields), -1, dtype=np.int32)
         mrid = fields[:, 4]
         mpos = fields[:, 5]
         mask = (mrid >= 0) & (mpos >= 0)
@@ -707,8 +632,87 @@ def run_fast(
                     mate_dst[sel] = src_entries[int(mr)].project_position(
                         mpos[sel], dst_e
                     )
-        if _PROF:
-            _tick("mate_project", t0)
+        return mate_dst
+
+    def start_batch(lines, rec_base, expect_nrec=None, batch=None):
+        """Parse + stage, and launch the device rewrite geometry where one
+        runs; returns a context dict (kept == 0 when the whole block was
+        filtered out — the parse counter deltas still ride in it).  The
+        stat deltas are folded in emit()."""
+        with tracing.span("parse_stage", batch):
+            # the device event kernel packs its gap bits 8 units per byte
+            staged = nat.parse_stage_batch(
+                lines, refmap, FLAG_SKIP, primary_mask,
+                4, 8 if dev_event is not None else 2, 2,
+            )
+        if expect_nrec is not None and staged["n_records"] != expect_nrec:
+            raise RuntimeError(
+                "scan/parse record count mismatch: "
+                f"{staged['n_records']} != {expect_nrec}"
+            )
+        parse_stats = (
+            staged["flags_not_matched"],
+            staged["ref_id_missing"],
+            staged["seq_missing"],
+        )
+        kept = staged["kept"]
+        if kept == 0:
+            return {"kept": 0, "parse_stats": parse_stats, "batch": batch}
+
+        # the stage that reads the batch's contigs: with the host event
+        # geometry the mate projection, else the device geometry's dispatch
+        with tracing.span("mate_project" if event_geo is not None else "rewrite_dispatch", batch):
+            fields = np.frombuffer(staged["fields"], np.int32).reshape(kept, 7)
+            ref_id = fields[:, 1]
+
+            if shard_check:
+                bad = src_dev[ref_id] < 0
+                if bad.any():
+                    i = int(np.argmax(bad))
+                    name = input_header.ref_names[int(ref_id[i])]
+                    raise ValueError(
+                        f"record references {name!r}, which is outside this "
+                        "index shard (--msa-index-chr-shard); route the input "
+                        "with panvc3_split_alignments_by_reference first"
+                    )
+            dst_rids = rim[ref_id]
+            snap = ref_seqs.require(int(r) for r in np.unique(dst_rids))
+            _ingest_refs(snap)
+
+            R = staged["R"]
+            fetch = fut = d_run = None
+            if event_geo is None:
+                # the device geometry, batch dimension bucketed as in
+                # BatchProjector.start_batch (padding rows copy the first)
+                n_pad = max(0, min(batch_size, next_pow2(kept)) - kept)
+                n_units = np.frombuffer(staged["n_ref_units"], np.int32)
+                if dev_event is not None:
+                    rows = (
+                        _pad_rows(np.ascontiguousarray(a, dtype=np.int32), n_pad)
+                        for a in (ref_id, fields[:, 2], n_units)
+                    )
+                    wire, overflow = dev_event.kernel_wire(
+                        *(_to_device(a, device) for a in rows), R
+                    )
+                else:
+                    # one packed u8 input row per record (10 B)
+                    packed_in = pack_gap_wire_input(
+                        np.ascontiguousarray(fields[:, 2]), n_units,
+                        src_dev[ref_id], dst_dev[dst_rids],
+                    )
+                    # d_run (int32, B x R) stays on the device unless the
+                    # wire overflows
+                    wire, overflow, d_run = rewrite_gap_kernel_wire(
+                        bp.index, _to_device(_pad_rows(packed_in, n_pad), device), R
+                    )
+                fetch = DeviceFetch(wire, overflow)
+                if fetch_pool is not None:
+                    fut = fetch_pool.submit(fetch.get)
+            else:
+                mate_dst = project_mates(fields)
+        if event_geo is None:
+            with tracing.span("mate_project", batch):
+                mate_dst = project_mates(fields)
 
         return {
             "staged": staged,
@@ -724,6 +728,7 @@ def run_fast(
             "R": R,
             "Lq": staged["Lq"],
             "snap": snap,
+            "batch": batch,
         }
 
     def host_event_geometry(ctx, geo):
@@ -765,39 +770,37 @@ def run_fast(
         if ctx is None or ctx["kept"] == 0:
             return ctx
         staged = ctx["staged"]
-        t0 = _time.perf_counter() if _PROF else 0.0
-        if event_geo is not None:
-            geometry = host_event_geometry(ctx, event_geo)
-        else:
-            geometry = device_geometry(ctx)
+        batch = ctx["batch"]
+        with tracing.span("event_geometry" if event_geo is not None else "rewrite_fetch", batch):
+            if event_geo is not None:
+                geometry = host_event_geometry(ctx, event_geo)
+            else:
+                geometry = device_geometry(ctx)
         dst_pos_a, gapbits, d_vals, d_pos, d_n, use_full, d_full = geometry
-        if _PROF:
-            t0 = _tick("event_geometry" if event_geo is not None else "rewrite_fetch", t0)
-        snap = ctx["snap"]
-        ref_list = [snap.get(rid, b"") for rid in range(len(dst_entries))]
-        run_ops_b, run_lens_b, runs_per_rec_b, indel_b = (
-            nat.finalize_reconstruct(
-                staged["unit_op"],
-                staged["unit_count"],
-                staged["n_units"],
-                dst_pos_a,
-                d_vals,
-                d_pos,
-                d_n,
-                D_SPARSE_SLOTS,
-                d_full,
-                int(use_full),
-                gapbits,
-                ctx["R"],
-                staged["query"],
-                ctx["Lq"],
-                ref_list,
-                ctx["dst_rids"],
+        with tracing.span("finalize", batch):
+            snap = ctx["snap"]
+            ref_list = [snap.get(rid, b"") for rid in range(len(dst_entries))]
+            run_ops_b, run_lens_b, runs_per_rec_b, indel_b = (
+                nat.finalize_reconstruct(
+                    staged["unit_op"],
+                    staged["unit_count"],
+                    staged["n_units"],
+                    dst_pos_a,
+                    d_vals,
+                    d_pos,
+                    d_n,
+                    D_SPARSE_SLOTS,
+                    d_full,
+                    int(use_full),
+                    gapbits,
+                    ctx["R"],
+                    staged["query"],
+                    ctx["Lq"],
+                    ref_list,
+                    ctx["dst_rids"],
+                )
             )
-        )
-        nruns = len(indel_b) // 36
-        if _PROF:
-            t0 = _tick("finalize", t0)
+            nruns = len(indel_b) // 36
         ctx.update(
             dst_pos=dst_pos_a,
             run_ops=run_ops_b,
@@ -847,6 +850,8 @@ def run_fast(
                 if real_cells > 1000:  # skip noise-dominated samples
                     adapt.observe_host_dp(dt_dp, real_cells)
                 ctx["stage_ns"] = _time.perf_counter_ns() - t0
+                if tracing.enabled():
+                    tracing.add("host_dp", t0, t0 + ctx["stage_ns"], batch)
                 return ctx
         if defer_dp:
             # device lane, deferred: the writer thread aggregates this
@@ -864,6 +869,7 @@ def run_fast(
             )
         else:
             # per-batch device dispatch
+            ctx["launched"] = S * Rp * Qp
             ref = np.frombuffer(ref_b, np.uint8).reshape(S, Rp)
             qry = np.frombuffer(q_b, np.uint8).reshape(S, Qp)
             rl = np.frombuffer(rl_b, np.int32)
@@ -899,11 +905,8 @@ def run_fast(
                 ctx["rfut"] = fetch_pool.submit(rh.get)
         # folded into bp.realignment_time_ns at emit time
         ctx["stage_ns"] = _time.perf_counter_ns() - t0
-        if _PROF:
-            with _prof_lock:
-                prof["realign_stage"] = prof.get("realign_stage", 0.0) + (
-                    ctx["stage_ns"] / 1e9
-                )
+        if tracing.enabled():
+            tracing.add("realign_stage", t0, t0 + ctx["stage_ns"], batch)
         return ctx
 
     def finish_realign(ctx):
@@ -917,6 +920,7 @@ def run_fast(
                 "blob": b"", "removed": {}, "n_realn": 0, "tot_len": 0,
                 "cells": 0, "rows": None, "fetch_ns": 0, "stage_ns": 0,
                 "kept": 0, "parse_stats": ctx["parse_stats"],
+                "batch": ctx["batch"], "launched": 0,
             }
         fetch_ns = 0
         steps = ctx["steps"]
@@ -931,6 +935,8 @@ def run_fast(
             else:
                 fetched = ctx["rh"].get()
             fetch_ns = _time.perf_counter_ns() - t0
+            if tracing.enabled():
+                tracing.add("realign_fetch", t0, t0 + fetch_ns, ctx["batch"])
             if ctx["rh_wire"]:
                 realn_ops, realn_counts = unpack_realign_wire(fetched[0], steps)
             else:
@@ -942,27 +948,22 @@ def run_fast(
             realn_ops = np.zeros(0, np.int8)
             realn_counts = np.zeros(0, np.int32)
             steps = 0
-        if _PROF and fetch_ns:
-            with _prof_lock:
-                prof["realign_fetch"] = prof.get("realign_fetch", 0.0) + fetch_ns / 1e9
 
         staged = ctx["staged"]
-        tsp = _time.perf_counter() if _PROF else 0.0
-        blob, removed, (n_realn, tot_len, cells), rows, _tasks_used = (
-            nat.splice_apply_format(
-                staged["arena"], staged["spans"], staged["line_index"],
-                staged["fields"], staged["n_ops"],
-                staged["ops"], staged["counts"], staged["O"],
-                ctx["dst_pos"], ctx["run_ops"], ctx["run_lens"],
-                ctx["runs_per_rec"], ctx["indel"],
-                realn_ops, realn_counts, steps,
-                ctx["mate_dst"], rim,
-                out_names, in_names, preserved, tag_names,
-                ctx["rec_base"], ctx["task_base"], want_ranges,
+        with tracing.span("splice_format", ctx["batch"]):
+            blob, removed, (n_realn, tot_len, cells), rows, _tasks_used = (
+                nat.splice_apply_format(
+                    staged["arena"], staged["spans"], staged["line_index"],
+                    staged["fields"], staged["n_ops"],
+                    staged["ops"], staged["counts"], staged["O"],
+                    ctx["dst_pos"], ctx["run_ops"], ctx["run_lens"],
+                    ctx["runs_per_rec"], ctx["indel"],
+                    realn_ops, realn_counts, steps,
+                    ctx["mate_dst"], rim,
+                    out_names, in_names, preserved, tag_names,
+                    ctx["rec_base"], ctx["task_base"], want_ranges,
+                )
             )
-        )
-        if _PROF:
-            _tick("splice_format", tsp)
         return {
             "blob": blob,
             "removed": removed,
@@ -977,6 +978,8 @@ def run_fast(
             "dev_realign": (
                 ctx.get("realn_override") is not None or ctx["rh"] is not None
             ),
+            "batch": ctx["batch"],
+            "launched": ctx.get("launched", 0),
         }
 
     def emit(payload):
@@ -1010,10 +1013,16 @@ def run_fast(
             attribute=bool(payload["n_realn"]),
             cells=payload["cells"],
         )
-        tw = _time.perf_counter() if _PROF else 0.0
-        writer.write_raw(payload["blob"])
-        if _PROF:
-            _tick("write", tw)
+        if payload["n_realn"]:
+            if payload["dev_realign"]:
+                diag["dp_runs_dev"] += payload["n_realn"]
+                diag["dp_cells_dev"] += payload["cells"]
+            else:
+                diag["dp_runs_host"] += payload["n_realn"]
+                diag["dp_cells_host"] += payload["cells"]
+        diag["dp_cells_dev_launched"] += payload["launched"]
+        with tracing.span("write", payload["batch"]):
+            writer.write_raw(payload["blob"])
 
     # ---- pipeline drive --------------------------------------------------
     # Main parses (start_batch) in order; each parsed batch runs
@@ -1036,7 +1045,7 @@ def run_fast(
             os.environ.get("PANVC3_BATCH_WORKERS", "0")
         ) or max(2, avail - 1)
         nat.set_slab_threads(1)
-        pool = ThreadPoolExecutor(max_workers=n_pool)
+        pool = ThreadPoolExecutor(max_workers=n_pool, thread_name_prefix="fastlane-worker")
         MAX_IN_FLIGHT = max(cfg.pipeline_depth, n_pool + 1)
         job_q = _queue.Queue(maxsize=MAX_IN_FLIGHT)
 
@@ -1065,8 +1074,8 @@ def run_fast(
                 return ("defer", ctx)
             return finish_realign(ctx)
 
-        def _job_full(lines, rec_base, task_base, nrec):
-            ctx = start_batch(lines, rec_base, nrec)
+        def _job_full(lines, rec_base, task_base, nrec, batch):
+            ctx = start_batch(lines, rec_base, nrec, batch)
             ctx["task_base"] = task_base
             return _job(ctx)
 
@@ -1076,8 +1085,14 @@ def run_fast(
             results come back as row slices.  Returns (parts [(lo, hi)],
             fetch_future, steps)."""
             _jitter()
+            with tracing.span("agg_pack_dispatch"):
+                parts, fetch, steps = _pack_dispatch(ctxs)
+            return parts, fetch_pool.submit(fetch), steps
+
+        def _pack_dispatch(ctxs):
+            """The aggregate dispatch up to its fetch: (parts, the fetch
+            function, steps)."""
             t0 = _time.perf_counter_ns()
-            tp0 = _time.perf_counter()
             # pad to the {p, 1.5p} ladder of the actual max run lengths:
             # block columns past each row's length are zeros, so narrower
             # pads just slice them
@@ -1167,6 +1182,7 @@ def run_fast(
             # length-sort the window (output order restored by inverse
             # permutation in _restore at fetch)
             diag["dispatches"] += 1
+            diag["dp_cells_dev_launched"] += S_b * Rmax * Qmax
             inv_order = None
             if agg_sort and S_tot > 1:
                 key = rl[:S_tot] + ql[:S_tot]
@@ -1267,27 +1283,15 @@ def run_fast(
             share = (_time.perf_counter_ns() - t0) // len(ctxs)
             for c in ctxs:
                 c["stage_ns"] = c.get("stage_ns", 0) + share
-            if _PROF:
-                _tick("agg_pack_dispatch", tp0)
-                with _prof_lock:
-                    prof["agg_dispatches"] = prof.get("agg_dispatches", 0) + 1
-                    prof["agg_runs"] = prof.get("agg_runs", 0) + S_tot
-
-                inner = _fetch
-
-                def _fetch():
-                    tf0 = _time.perf_counter()
-                    out = inner()
-                    _tick("agg_fetch_wall", tf0)
-                    return out
-
-            return parts, fetch_pool.submit(_fetch), steps
+            return parts, _fetch, steps
 
         def _finish_deferred(ctx, agg_fut, lo, hi, steps):
             _jitter()
             t0 = _time.perf_counter_ns()
             ops_all, cnt_all = agg_fut.result()
             ctx["agg_fetch_ns"] = _time.perf_counter_ns() - t0
+            if tracing.enabled():
+                tracing.add("realign_fetch", t0, t0 + ctx["agg_fetch_ns"], ctx["batch"])
             ctx["realn_override"] = (ops_all[lo:hi], cnt_all[lo:hi], steps)
             return finish_realign(ctx)
 
@@ -1304,6 +1308,18 @@ def run_fast(
             out_q: _collections.deque = _collections.deque()
             window: list = []  # (entry, ctx) pairs awaiting dispatch
             window_runs = 0
+
+            def wait(fut):
+                """A job's result; traced, the writer's wait on a job not
+                yet done is a ``writer_wait`` span."""
+                if not tracing.enabled() or fut.done():
+                    return fut.result()
+                t0 = _time.perf_counter_ns()
+                res = fut.result()
+                ctx = res[1] if isinstance(res, tuple) else res
+                tracing.add("writer_wait", t0, _time.perf_counter_ns(),
+                            ctx["batch"] if ctx else None)
+                return res
 
             def flush():
                 nonlocal window, window_runs
@@ -1328,7 +1344,7 @@ def run_fast(
                         out_q.popleft()
                     elif kind == "fut":
                         if block or val.done():
-                            emit(val.result())
+                            emit(wait(val))
                             out_q.popleft()
                         else:
                             return
@@ -1338,7 +1354,8 @@ def run_fast(
                         flush()
 
             while True:
-                fut = job_q.get()
+                with tracing.span("writer_idle"):
+                    fut = job_q.get()
                 _jitter()
                 if fut is None:
                     try:
@@ -1348,7 +1365,7 @@ def run_fast(
                         worker_error.append(exc)
                     return
                 try:
-                    res = fut.result()
+                    res = wait(fut)
                     if isinstance(res, tuple) and res and res[0] == "defer":
                         ctx = res[1]
                         entry = ["pending", ctx]
@@ -1381,14 +1398,14 @@ def run_fast(
                         # hard cap: block on the head until the queue shrinks
                         while len(out_q) > 2 * agg_max_batches:
                             kind, val = out_q.popleft()
-                            emit(val.result() if kind == "fut" else val)
+                            emit(wait(val) if kind == "fut" else val)
                 except BaseException as exc:  # noqa: BLE001 — re-raised on main
                     worker_error.append(exc)
                     while True:
                         if job_q.get() is None:
                             return
 
-        writer_thread = threading.Thread(target=_writer, daemon=True)
+        writer_thread = threading.Thread(target=_writer, name="fastlane-writer", daemon=True)
         writer_thread.start()
     else:
         MAX_IN_FLIGHT = max(1, cfg.pipeline_depth)
@@ -1412,19 +1429,22 @@ def run_fast(
         state["rec_global"] += nrec
         task_base = state["task_counter"]
         state["task_counter"] += (kept_exp + 3) // 4
+        batch = state["batches"]
+        state["batches"] += 1
         if pool is not None:
             if worker_error:
                 raise worker_error[0]
             if parse_in_pool:
-                job_q.put(
-                    pool.submit(_job_full, lines, rec_base, task_base, nrec)
-                )
+                job = pool.submit(_job_full, lines, rec_base, task_base, nrec, batch)
             else:
-                ctx = start_batch(lines, rec_base, nrec)
+                ctx = start_batch(lines, rec_base, nrec, batch)
                 ctx["task_base"] = task_base
-                job_q.put(pool.submit(_job, ctx))
+                job = pool.submit(_job, ctx)
+            # blocked here while the writer holds MAX_IN_FLIGHT jobs
+            with tracing.span("submit_wait", batch):
+                job_q.put(job)
         else:
-            ctx = start_batch(lines, rec_base, nrec)
+            ctx = start_batch(lines, rec_base, nrec, batch)
             ctx["task_base"] = task_base
             in_flight.append(ctx)
             if len(in_flight) >= MAX_IN_FLIGHT:
@@ -1469,20 +1489,29 @@ def run_fast(
             reporter.tick(n_before)
             submit(batch, kept_exp, nrec)
 
+    blocks = reader.raw_record_line_blocks()
     try:
-        for block in reader.raw_record_line_blocks():
-            mask = np.frombuffer(
-                nat.scan_keep_mask(block, FLAG_SKIP, primary_mask), np.uint8
-            )
-            lines_buf += block
-            keep_buf = np.concatenate([keep_buf, mask])
-            kept_in_buf += int((mask == 2).sum())
+        while True:
+            # BGZF inflate and the conversion to SAM text (BAM input)
+            with tracing.span("bam_read"):
+                block = next(blocks, None)
+            if block is None:
+                break
+            with tracing.span("scan_mask"):
+                mask = np.frombuffer(
+                    nat.scan_keep_mask(block, FLAG_SKIP, primary_mask), np.uint8
+                )
+                lines_buf += block
+                keep_buf = np.concatenate([keep_buf, mask])
+                kept_in_buf += int((mask == 2).sum())
             form_batches()
         form_batches(eof=True)
     finally:
         if writer_thread is not None:
-            job_q.put(None)
-            writer_thread.join()
+            # the last hand-over, then the wait for the writer to drain
+            with tracing.span("submit_wait"):
+                job_q.put(None)
+                writer_thread.join()
         if pool is not None:
             pool.shutdown(wait=True)
             nat.set_slab_threads(0)
@@ -1495,10 +1524,7 @@ def run_fast(
     while realign_flight:
         emit(finish_realign(realign_flight.popleft()))
     bp.realignment_time_ns += state["realign_stage_ns"] + state["realign_fetch_ns"]
-    if _PROF:
-        total = sum(prof.values())
-        parts = ", ".join(f"{k} {v:.3f}s" for k, v in sorted(prof.items()))
-        log_time(f"[fastlane prof] {parts} (sum {total:.3f}s)")
+    if tracing.enabled():
         log_time("[fastlane diag] " + json.dumps({
             **AGG_DIAG,
             "kernel_launches": dict(_kernels.LAUNCHES),

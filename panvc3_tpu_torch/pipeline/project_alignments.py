@@ -34,7 +34,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..alphabet import decode_phred42
 from ..cigar import cigar_query_length
 from ..io.fasta import FastaReader
@@ -448,36 +448,46 @@ def run_project_alignments(
     dev = devices[0] if isinstance(devices, list) else devices
     if cfg.engine not in ("host", "device"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    reader = SamReader(input_path_or_fh)
-    input_header = reader.header
-    out_header, ref_id_mapping = process_headers(
-        input_header, cfg.ref_id_separator, cfg.reference_msa_id,
-        cfg.reference_order_path,
-    )
-    out_header.append_program(
-        "panvc3.project-alignments",
-        "PanVC 3 project_alignments",
-        cfg.command_line,
-        version,
-    )
+    # under PANVC3_FASTLANE_PROF=1 the call's spans, set-up first, and its
+    # [fastlane prof] line at the end
+    tracing.begin_call()
+    with tracing.span("setup_header"):
+        reader = SamReader(input_path_or_fh)
+        input_header = reader.header
+        out_header, ref_id_mapping = process_headers(
+            input_header, cfg.ref_id_separator, cfg.reference_msa_id,
+            cfg.reference_order_path,
+        )
+        out_header.append_program(
+            "panvc3.project-alignments",
+            "PanVC 3 project_alignments",
+            cfg.command_line,
+            version,
+        )
 
-    msa_index = MsaIndex.load(cfg.msa_index_path, shard=cfg.chr_shard)
-    src_entries, dst_entries = fill_sequence_entries(
-        msa_index,
-        input_header.ref_names,
-        len(out_header.ref_names),
-        cfg.ref_id_separator,
-        cfg.reference_msa_id,
-        ref_id_mapping,
-        allow_missing=cfg.chr_shard is not None,
-    )
+    with tracing.span("setup_index_load"):
+        msa_index = MsaIndex.load(cfg.msa_index_path, shard=cfg.chr_shard)
+    with tracing.span("setup_entries"):
+        src_entries, dst_entries = fill_sequence_entries(
+            msa_index,
+            input_header.ref_names,
+            len(out_header.ref_names),
+            cfg.ref_id_separator,
+            cfg.reference_msa_id,
+            ref_id_mapping,
+            allow_missing=cfg.chr_shard is not None,
+        )
 
-    fasta = FastaReader(cfg.reference_path)
+    with tracing.span("setup_fasta_open"):
+        fasta = FastaReader(cfg.reference_path)
+
+    def read_contig(rid):
+        with tracing.span("setup_reference_read"):
+            return fasta.read_sequence(out_header.ref_names[rid])
+
     # bounded contig buffers: at most 4 unpinned contigs stay resident;
     # batches hold snapshots so in-flight work keeps its buffers alive
-    ref_seqs = SequenceBufferStore(
-        lambda rid: fasta.read_sequence(out_header.ref_names[rid]), max_size=4
-    )
+    ref_seqs = SequenceBufferStore(read_contig, max_size=4)
     writer = SamWriter(output_path_or_fh, out_header, bam=cfg.output_bam)
     stats = ProjectStatistics()
     # (loc, length, qname, task_id) rows; task ids are sequential from 1
@@ -495,36 +505,37 @@ def run_project_alignments(
         )
         from .fastlane import fastlane_eligible, run_fast
 
-        mesh = None
-        if cfg.data_parallel:
-            from ..parallel.mesh import make_mesh
+        with tracing.span("setup_engine"):
+            mesh = None
+            if cfg.data_parallel:
+                from ..parallel.mesh import make_mesh
 
-            n = cfg.data_parallel
-            mesh = make_mesh(n if n > 0 else None, devices if isinstance(devices, list) else dev.type)
-        # the engine-lane arbiter: the fused engine where host CPU is scarce
-        # and the device-to-host leg is healthy, else the split fast lane.
-        # Not consulted under a mesh, under -q or without the C extension
-        # (the fused engine gates itself off there), nor when the caller
-        # chose.
-        if (
-            not cfg.fused_kernel
-            and mesh is None
-            and not cfg.use_read_base_qualities
-            and get_native() is not None
-            and os.environ.get("PANVC3_ENGINE_AUTO", "1") != "0"
-            and choose_engine_lane(dev) == "fused"
-        ):
-            cfg = dataclasses.replace(cfg, fused_kernel=True)
-        reset_fused_routes()
-        batch_engine = BatchProjector(
-            src_entries,
-            dst_entries,
-            ref_id_mapping,
-            cfg.gap_opening_cost,
-            cfg.gap_extension_cost,
-            device=dev,
-            mesh=mesh,
-        )
+                n = cfg.data_parallel
+                mesh = make_mesh(n if n > 0 else None, devices if isinstance(devices, list) else dev.type)
+            # the engine-lane arbiter: the fused engine where host CPU is
+            # scarce and the device-to-host leg is healthy, else the split
+            # fast lane.  Not consulted under a mesh, under -q or without
+            # the C extension (the fused engine gates itself off there),
+            # nor when the caller chose.
+            if (
+                not cfg.fused_kernel
+                and mesh is None
+                and not cfg.use_read_base_qualities
+                and get_native() is not None
+                and os.environ.get("PANVC3_ENGINE_AUTO", "1") != "0"
+                and choose_engine_lane(dev) == "fused"
+            ):
+                cfg = dataclasses.replace(cfg, fused_kernel=True)
+            reset_fused_routes()
+            batch_engine = BatchProjector(
+                src_entries,
+                dst_entries,
+                ref_id_mapping,
+                cfg.gap_opening_cost,
+                cfg.gap_extension_cost,
+                device=dev,
+                mesh=mesh,
+            )
         if cfg.fastlane and fastlane_eligible(cfg, mesh, batch_engine):
             run_fast(
                 reader, writer, cfg, stats, batch_engine,
@@ -537,7 +548,7 @@ def run_project_alignments(
                 src_entries, dst_entries, ref_id_mapping, ref_seqs,
                 realigned_ranges,
             )
-            if cfg.fused_kernel and os.environ.get("PANVC3_FASTLANE_PROF") == "1":
+            if cfg.fused_kernel and tracing.enabled():
                 log_time("[fused routes] " + json.dumps(FUSED_ROUTES))
         stats.realignment_time_ns += batch_engine.realignment_time_ns
     else:
@@ -548,6 +559,8 @@ def run_project_alignments(
     writer.close()
     if cfg.output_realigned_ranges_path and realigned_ranges is not None:
         _write_realigned_ranges(cfg, realigned_ranges, stats)
+    if tracing.enabled():
+        log_time(tracing.end_call())
     return stats
 
 
