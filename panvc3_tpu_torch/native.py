@@ -86,7 +86,7 @@ def _build(out: pathlib.Path, work: pathlib.Path) -> None:
     run_compiler(link, "the native extension")
 
 
-def _cpu_id() -> str:
+def cpu_id() -> str:
     """The host CPU's model and feature flags (Linux), else its machine
     type."""
     try:
@@ -106,7 +106,7 @@ def library_path() -> pathlib.Path:
     # -march=native: a build is only valid on the CPU it was made for
     key = digest(
         [NATIVE_DIR / s for s in SOURCES + HEADERS],
-        probe_cmds[0] + probe_link[:1] + [_cpu_id()],
+        probe_cmds[0] + probe_link[:1] + [cpu_id()],
     )
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     return build_once("native", key, MODULE_NAME + suffix, _build)

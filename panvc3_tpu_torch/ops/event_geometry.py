@@ -20,18 +20,30 @@ Per pair, from ``xor`` of the packed gap words:
   ``b``, the number of destination bases strictly between the aligned
   columns of source units ``b-1`` and ``b`` (these emit D runs —
   rewrite_cigar.hh:88-94,117-133).
+
+``build_pair_events`` derives them with whole-row NumPy passes and is the
+reference; ``build_pair_events_c`` gets the same arrays from one C scan of
+the packed words (``csrc_host/event_tables.c``, built with the host
+compiler at first use and bound by ``ctypes``), which ``EventGeometry``
+takes unless ``PANVC3_EVENT_GEOMETRY_NATIVE=0``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import pathlib
+import shlex
+import sysconfig
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .._build import build_once, digest, run_compiler
 from ..bitvec import GapBitVector
-from ..native import get_native
+from ..native import cpu_id, get_native
 from .rank_select import clamped, take
 from .rewrite_batch import D_SPARSE_SLOTS, as_device, pos_bytes
 
@@ -103,6 +115,56 @@ def build_pair_events(src: GapBitVector, dst: GapBitVector) -> PairEvents:
     return _make_pair_events(gap_start, gap_end, del_b, del_len)
 
 
+SCAN_SOURCE = pathlib.Path(__file__).resolve().parent / "csrc_host" / "event_tables.c"
+# -march=native: a build is only valid on the CPU it was made for
+SCAN_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared")
+
+_scan_lock = threading.Lock()
+_scan_fn = None
+
+
+def scan_library() -> pathlib.Path:
+    """Path of the built scan (``build_root()/host/<digest>/``), building
+    it first if needed."""
+    cmd = shlex.split(sysconfig.get_config_var("CC") or "cc") + list(SCAN_FLAGS)
+    key = digest([SCAN_SOURCE], cmd + [cpu_id()])
+
+    def build(out: pathlib.Path, work: pathlib.Path) -> None:
+        run_compiler([*cmd, "-o", str(out), str(SCAN_SOURCE)], "the event-table scan")
+
+    return build_once("host", key, "libevent_tables.so", build)
+
+
+def _scan():
+    global _scan_fn
+    with _scan_lock:
+        if _scan_fn is None:
+            fn = ctypes.CDLL(str(scan_library())).event_tables_scan
+            P = ctypes.c_void_p
+            fn.argtypes = [P, P, ctypes.c_int64, ctypes.c_int64, P, P, P, P, P]
+            fn.restype = ctypes.c_int
+            _scan_fn = fn
+        return _scan_fn
+
+
+def build_pair_events_c(src: GapBitVector, dst: GapBitVector) -> PairEvents:
+    """``build_pair_events`` by one C scan of the packed words: the same
+    arrays, byte for byte (two passes: count, then fill)."""
+    fn = _scan()
+    s = np.ascontiguousarray(src.words, dtype=np.uint32)
+    d = np.ascontiguousarray(dst.words, dtype=np.uint32)
+    n_words = min(len(s), len(d))
+    limit = min(src.n, dst.n)
+    counts = np.zeros(2, np.int64)
+    fn(s.ctypes.data, d.ctypes.data, n_words, limit, None, None, None, None,
+       counts.ctypes.data)
+    gap_start, gap_end = np.empty(counts[0], np.int64), np.empty(counts[0], np.int64)
+    del_b, del_len = np.empty(counts[1], np.int64), np.empty(counts[1], np.int64)
+    fn(s.ctypes.data, d.ctypes.data, n_words, limit, gap_start.ctypes.data,
+       gap_end.ctypes.data, del_b.ctypes.data, del_len.ctypes.data, counts.ctypes.data)
+    return _make_pair_events(gap_start, gap_end, del_b, del_len)
+
+
 def project_unit(pe: PairEvents, u: np.ndarray) -> np.ndarray:
     """Destination position of source unit ``u`` from the events alone.
 
@@ -146,9 +208,15 @@ class EventGeometry:
 
     Produces exactly the arrays the native ``finalize_reconstruct``
     consumes (dst_pos, gapbits bitmask, sparse-or-full deletion runs).
+    ``PANVC3_EVENT_GEOMETRY_NATIVE=0`` builds the tables and answers
+    ``batch`` in NumPy; otherwise both run in C.  ``pairs_built`` counts
+    the distinct pairs whose tables were built, by path
+    (``event_pairs_c``, ``event_pairs_numpy``).
     """
 
     def __init__(self, src_entries, dst_entries, ref_id_mapping):
+        native = os.environ.get("PANVC3_EVENT_GEOMETRY_NATIVE") != "0"
+        build = build_pair_events_c if native else build_pair_events
         self.src_gv = [e.gaps if e is not None else None for e in src_entries]
         self.dst_gv = [
             dst_entries[ref_id_mapping[i]].gaps
@@ -166,15 +234,18 @@ class EventGeometry:
                 continue
             key = (id(s), id(d))
             if key not in cache:
-                cache[key] = build_pair_events(s, d)
+                cache[key] = build(s, d)
             self.events.append(cache[key])
+        self.pairs_built = {
+            "event_pairs_c": len(cache) if native else 0,
+            "event_pairs_numpy": 0 if native else len(cache),
+        }
 
         # native fast path (the C host extension's event_geometry_batch):
-        # per-rid buffer tuples; PANVC3_EVENT_GEOMETRY_NATIVE=0 keeps the
-        # numpy path
+        # per-rid buffer tuples
         self._native = None
         self._native_group: list[tuple | None] = []
-        if os.environ.get("PANVC3_EVENT_GEOMETRY_NATIVE") != "0":
+        if native:
             self._native = get_native()
             for pe, s in zip(self.events, self.src_gv):
                 if pe is None:

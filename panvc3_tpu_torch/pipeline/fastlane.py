@@ -84,14 +84,18 @@ FLAG_SKIP = 0x4 | 0x200 | 0x400  # unmapped | QC fail | duplicate
 # realignment runs and their cells (rl x ql) by lane (``dp_runs_host``,
 # ``dp_cells_host``, ``dp_runs_dev``, ``dp_cells_dev``) and the cells the
 # device lane's kernels compute, padding included
-# (``dp_cells_dev_launched``), all mutated only on the writer thread; and
-# of batches whose device rewrite geometry overflowed
-# (``geometry_overflow``, under _DIAG_LOCK).
+# (``dp_cells_dev_launched``), all mutated only on the writer thread; of
+# batches whose device rewrite geometry overflowed (``geometry_overflow``,
+# under _DIAG_LOCK); and of the distinct (src, dst) pairs whose event
+# tables a call built, by path (``event_pairs_c``, ``event_pairs_numpy``:
+# ``EventGeometry.pairs_built``, added on the main thread at set-up; the
+# line shows the call's own).
 AGG_DIAG = {
     "dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0,
     "geometry_overflow": 0,
     "dp_runs_host": 0, "dp_cells_host": 0, "dp_runs_dev": 0, "dp_cells_dev": 0,
     "dp_cells_dev_launched": 0,
+    "event_pairs_c": 0, "event_pairs_numpy": 0,
 }
 _DIAG_LOCK = threading.Lock()
 
@@ -462,6 +466,12 @@ def run_fast(
             dev_event = DeviceEventGeometry(dev_event_host, device)
         elif ev_mode != "0":
             event_geo = EventGeometry(src_entries, dst_entries, ref_id_mapping)
+    host_geo = event_geo or dev_event_host
+    pairs_built = (host_geo.pairs_built if host_geo is not None
+                   else {"event_pairs_c": 0, "event_pairs_numpy": 0})
+    with _DIAG_LOCK:
+        for key, n in pairs_built.items():
+            AGG_DIAG[key] += n
 
     refmap = {name.encode(): i for i, name in enumerate(input_header.ref_names)}
     rim = np.asarray(ref_id_mapping, dtype=np.int32)
@@ -1527,6 +1537,7 @@ def run_fast(
     if tracing.enabled():
         log_time("[fastlane diag] " + json.dumps({
             **AGG_DIAG,
+            **pairs_built,
             "kernel_launches": dict(_kernels.LAUNCHES),
             "device": str(device),
         }))
