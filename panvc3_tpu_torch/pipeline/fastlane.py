@@ -84,17 +84,22 @@ FLAG_SKIP = 0x4 | 0x200 | 0x400  # unmapped | QC fail | duplicate
 # realignment runs and their cells (rl x ql) by lane (``dp_runs_host``,
 # ``dp_cells_host``, ``dp_runs_dev``, ``dp_cells_dev``) and the cells the
 # device lane's kernels compute, padding included
-# (``dp_cells_dev_launched``), all mutated only on the writer thread; of
-# batches whose device rewrite geometry overflowed (``geometry_overflow``,
-# under _DIAG_LOCK); and of the distinct (src, dst) pairs whose event
-# tables a call built, by path (``event_pairs_c``, ``event_pairs_numpy``:
-# ``EventGeometry.pairs_built``, added on the main thread at set-up; the
-# line shows the call's own).
+# (``dp_cells_dev_launched``) and, under ``-q``, the bytes of query phreds
+# staged and copied to the card (``qual_bytes_dev``: the wire's phred
+# bytes, or the unwired dispatch's u8 rows), all mutated only on the writer
+# thread; of batches whose device rewrite geometry overflowed
+# (``geometry_overflow``, under _DIAG_LOCK); of the runs of batches that
+# ``-q`` keeps off the host lane, too long for the quantised scores
+# (``qual_runs_off_host``: Rp + Qp > QUAL_MAX_STEPS, under _DIAG_LOCK; both
+# device paths then refuse the batch); and of the distinct (src, dst)
+# pairs whose event tables a call built, by path (``event_pairs_c``,
+# ``event_pairs_numpy``: ``EventGeometry.pairs_built``, added on the main
+# thread at set-up; the line shows the call's own).
 AGG_DIAG = {
     "dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0,
     "geometry_overflow": 0,
     "dp_runs_host": 0, "dp_cells_host": 0, "dp_runs_dev": 0, "dp_cells_dev": 0,
-    "dp_cells_dev_launched": 0,
+    "dp_cells_dev_launched": 0, "qual_bytes_dev": 0, "qual_runs_off_host": 0,
     "event_pairs_c": 0, "event_pairs_numpy": 0,
 }
 _DIAG_LOCK = threading.Lock()
@@ -834,7 +839,10 @@ def run_fast(
             staged["arena"], staged["spans"], int(use_quality),
         )
         ctx["steps"] = Rp + Qp
-        if host_dp_eligible and not (use_quality and Rp + Qp > QUAL_MAX_STEPS):
+        if host_dp_eligible and use_quality and Rp + Qp > QUAL_MAX_STEPS:
+            with _DIAG_LOCK:
+                diag["qual_runs_off_host"] += nruns
+        elif host_dp_eligible:
             rl_a = np.frombuffer(rl_b, np.int32)
             ql_a = np.frombuffer(ql_b, np.int32)
             real_cells = int(rl_a.astype(np.int64) @ ql_a.astype(np.int64))
@@ -904,6 +912,7 @@ def run_fast(
                         np.frombuffer(qq_b, np.int32).reshape(S, Qp).astype(np.uint8),
                         device,
                     )
+                    ctx["qual_bytes"] = S * Qp
                 ops, cnt = realign_device_kernel(
                     _to_device(ref, device), _to_device(qry, device),
                     _to_device(rl, device), _to_device(ql, device),
@@ -930,7 +939,7 @@ def run_fast(
                 "blob": b"", "removed": {}, "n_realn": 0, "tot_len": 0,
                 "cells": 0, "rows": None, "fetch_ns": 0, "stage_ns": 0,
                 "kept": 0, "parse_stats": ctx["parse_stats"],
-                "batch": ctx["batch"], "launched": 0,
+                "batch": ctx["batch"], "launched": 0, "qual_bytes": 0,
             }
         fetch_ns = 0
         steps = ctx["steps"]
@@ -990,6 +999,7 @@ def run_fast(
             ),
             "batch": ctx["batch"],
             "launched": ctx.get("launched", 0),
+            "qual_bytes": ctx.get("qual_bytes", 0),
         }
 
     def emit(payload):
@@ -1031,6 +1041,7 @@ def run_fast(
                 diag["dp_runs_host"] += payload["n_realn"]
                 diag["dp_cells_host"] += payload["cells"]
         diag["dp_cells_dev_launched"] += payload["launched"]
+        diag["qual_bytes_dev"] += payload["qual_bytes"]
         with tracing.span("write", payload["batch"]):
             writer.write_raw(payload["blob"])
 
@@ -1233,6 +1244,9 @@ def run_fast(
                 diag["refgather"] += 1
             if wire2:
                 diag["wire2"] += 1
+            if qq is not None:
+                # the 2-bit wire packs four 6-bit phreds into three bytes
+                diag["qual_bytes_dev"] += S_b * (3 * Qmax // 4 if wire2 else Qmax)
             if rg_starts is not None:
                 if use_quality and wire2:
                     packed = pack_realign_refgather2_input_q(qb, rg_starts, rl, ql, qq)
