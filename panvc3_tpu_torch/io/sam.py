@@ -503,6 +503,15 @@ class SamReader:
     def _bam_skip(self, n: int) -> None:
         del self._bam_buf[:n]
 
+    def take_bam_stream(self):
+        """Hands the BAM input past the header to another reader: (the
+        inflated bytes not yet read, the compressed bytes not yet
+        inflated, the file, whether its end was reached).  This reader
+        reads no record after it."""
+        out = (bytes(self._bam_buf), bytes(self._bam_comp), self._fh, self._bam_eof)
+        self._bam_buf, self._bam_comp, self._bam_eof = bytearray(), bytearray(), True
+        return out
+
     def raw_record_line_blocks(self, hint: int = 1 << 20):
         """Yield blocks (lists) of raw record line bytes.
 

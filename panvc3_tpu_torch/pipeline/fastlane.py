@@ -4,7 +4,9 @@ Counterpart of ``panvc3_tpu.pipeline.fastlane.run_fast``.  Records stay
 native end to end: raw line bytes -> C ``parse_stage_batch`` -> host
 event geometry -> C ``finalize_reconstruct`` -> C ``stage_realign_runs``
 -> realignment -> C ``splice_apply_format`` -> SAM text.  Python moves
-numpy arrays between those steps.
+numpy arrays between those steps.  BAM input skips the text: the BAM
+ingest (``io/bam_ingest.py``) stages its batches straight from the binary
+records, on a thread of its own ahead of the main thread.
 
 The realignment of each batch's indel runs takes one of two lanes, chosen
 per batch by a ``LaneController``: the host C DP, or the device lane,
@@ -44,6 +46,7 @@ import torch
 
 from .. import tracing
 from ..align import MALDE_SCALE, malde_tables
+from ..io.bam_ingest import BamIngest, IngestThread
 from ..native import get_native
 from ..ops import _kernels
 from ..ops.engine import next_pow2
@@ -94,14 +97,21 @@ FLAG_SKIP = 0x4 | 0x200 | 0x400  # unmapped | QC fail | duplicate
 # device paths then refuse the batch); and of the distinct (src, dst)
 # pairs whose event tables a call built, by path (``event_pairs_c``,
 # ``event_pairs_numpy``: ``EventGeometry.pairs_built``, added on the main
-# thread at set-up; the line shows the call's own).
+# thread at set-up; the line shows the call's own); and of the batches
+# staged, by path (``ingest_batches_bam``: the BAM ingest's;
+# ``ingest_batches_text``: ``parse_stage_batch``'s over text lines; under
+# _DIAG_LOCK; the line shows the call's own, beside its ``batches``).
 AGG_DIAG = {
     "dispatches": 0, "wire2": 0, "sorted": 0, "refgather": 0,
     "geometry_overflow": 0,
     "dp_runs_host": 0, "dp_cells_host": 0, "dp_runs_dev": 0, "dp_cells_dev": 0,
     "dp_cells_dev_launched": 0, "qual_bytes_dev": 0, "qual_runs_off_host": 0,
     "event_pairs_c": 0, "event_pairs_numpy": 0,
+    "ingest_batches_bam": 0, "ingest_batches_text": 0,
 }
+INGEST_KEYS = ("ingest_batches_bam", "ingest_batches_text")
+# staged batches the BAM ingest's thread keeps ready for the main thread
+INGEST_DEPTH = 4
 _DIAG_LOCK = threading.Lock()
 
 
@@ -477,6 +487,7 @@ def run_fast(
     with _DIAG_LOCK:
         for key, n in pairs_built.items():
             AGG_DIAG[key] += n
+        ingest_base = {key: AGG_DIAG[key] for key in INGEST_KEYS}
 
     refmap = {name.encode(): i for i, name in enumerate(input_header.ref_names)}
     rim = np.asarray(ref_id_mapping, dtype=np.int32)
@@ -500,6 +511,9 @@ def run_fast(
     want_ranges = 1 if realigned_ranges is not None else 0
 
     batch_size = max(4, cfg.device_batch_size)
+    # parse_stage_batch's least pads (O, R, Lq): the device event kernel
+    # packs its gap bits 8 units per byte
+    stage_pads = (4, 8 if dev_event is not None else 2, 2)
     go = np.float32(cfg.gap_opening_cost)
     ge = np.float32(cfg.gap_extension_cost)
     # quality scoring (-q): the DP runs in the quantised Malde units, so
@@ -649,17 +663,22 @@ def run_fast(
                     )
         return mate_dst
 
-    def start_batch(lines, rec_base, expect_nrec=None, batch=None):
-        """Parse + stage, and launch the device rewrite geometry where one
+    def start_batch(lines, rec_base, expect_nrec=None, batch=None, staged=None):
+        """Parse + stage (text lines; a batch the BAM ingest staged comes
+        as ``staged``), and launch the device rewrite geometry where one
         runs; returns a context dict (kept == 0 when the whole block was
         filtered out — the parse counter deltas still ride in it).  The
         stat deltas are folded in emit()."""
-        with tracing.span("parse_stage", batch):
-            # the device event kernel packs its gap bits 8 units per byte
-            staged = nat.parse_stage_batch(
-                lines, refmap, FLAG_SKIP, primary_mask,
-                4, 8 if dev_event is not None else 2, 2,
-            )
+        if staged is None:
+            with tracing.span("parse_stage", batch):
+                staged = nat.parse_stage_batch(
+                    lines, refmap, FLAG_SKIP, primary_mask, *stage_pads
+                )
+            path = "ingest_batches_text"
+        else:
+            path = "ingest_batches_bam"
+        with _DIAG_LOCK:
+            diag[path] += 1
         if expect_nrec is not None and staged["n_records"] != expect_nrec:
             raise RuntimeError(
                 "scan/parse record count mismatch: "
@@ -1095,11 +1114,6 @@ def run_fast(
                 return ("defer", ctx)
             return finish_realign(ctx)
 
-        def _job_full(lines, rec_base, task_base, nrec, batch):
-            ctx = start_batch(lines, rec_base, nrec, batch)
-            ctx["task_base"] = task_base
-            return _job(ctx)
-
         def _dispatch_aggregate(ctxs):
             """One realign dispatch for the pooled runs of several batches.
             Blocks re-pad into a common (S_bucket, Rmax/Qmax) layout;
@@ -1439,17 +1453,16 @@ def run_fast(
     in_flight: collections.deque = collections.deque()
     realign_flight: collections.deque = collections.deque()
 
-    # PANVC3_PARSE_IN_POOL=1 parses inside the pool jobs (opt-in for wide
-    # hosts: on few cores the parse holds the GIL and convoys the jobs)
-    parse_in_pool = (
-        pool is not None and os.environ.get("PANVC3_PARSE_IN_POOL") == "1"
-    )
-
-    def submit(lines, kept_exp, nrec):
+    def submit(lines, kept_exp, nrec, staged=None):
         # record/task numbering is deterministic per batch: nrec comes from
-        # the scan mask and the task groups are ceil(kept/4), so both bases
-        # are assigned here in submission order
+        # the scan mask (or the ingest's cut) and the task groups are
+        # ceil(kept/4), so both bases are assigned here in submission order
         rec_base = state["rec_global"]
+        if rec_base and (rec_base // 10_000_000) != (
+            (rec_base + nrec) // 10_000_000
+        ):
+            log_time(f"Processed {rec_base + nrec} alignments…")
+        reporter.tick(rec_base)
         state["rec_global"] += nrec
         task_base = state["task_counter"]
         state["task_counter"] += (kept_exp + 3) // 4
@@ -1458,17 +1471,14 @@ def run_fast(
         if pool is not None:
             if worker_error:
                 raise worker_error[0]
-            if parse_in_pool:
-                job = pool.submit(_job_full, lines, rec_base, task_base, nrec, batch)
-            else:
-                ctx = start_batch(lines, rec_base, nrec, batch)
-                ctx["task_base"] = task_base
-                job = pool.submit(_job, ctx)
+            ctx = start_batch(lines, rec_base, nrec, batch, staged)
+            ctx["task_base"] = task_base
+            job = pool.submit(_job, ctx)
             # blocked here while the writer holds MAX_IN_FLIGHT jobs
             with tracing.span("submit_wait", batch):
                 job_q.put(job)
         else:
-            ctx = start_batch(lines, rec_base, nrec, batch)
+            ctx = start_batch(lines, rec_base, nrec, batch, staged)
             ctx["task_base"] = task_base
             in_flight.append(ctx)
             if len(in_flight) >= MAX_IN_FLIGHT:
@@ -1505,32 +1515,47 @@ def run_fast(
                 lines_buf = []
                 keep_buf = np.zeros(0, dtype=np.uint8)
                 kept_in_buf = 0
-            n_before = state["rec_global"]
-            if n_before and (n_before // 10_000_000) != (
-                (n_before + nrec) // 10_000_000
-            ):
-                log_time(f"Processed {n_before + nrec} alignments…")
-            reporter.tick(n_before)
             submit(batch, kept_exp, nrec)
 
-    blocks = reader.raw_record_line_blocks()
+    # BAM input: the ingest stages the batches, cut the same way, on a
+    # thread of its own (inline on the serial path); the main thread's
+    # bam_read is then its wait for the next one
+    ingest = ingest_thread = None
     try:
-        while True:
-            # BGZF inflate and the conversion to SAM text (BAM input)
-            with tracing.span("bam_read"):
-                block = next(blocks, None)
-            if block is None:
-                break
-            with tracing.span("scan_mask"):
-                mask = np.frombuffer(
-                    nat.scan_keep_mask(block, FLAG_SKIP, primary_mask), np.uint8
-                )
-                lines_buf += block
-                keep_buf = np.concatenate([keep_buf, mask])
-                kept_in_buf += int((mask == 2).sum())
-            form_batches()
-        form_batches(eof=True)
+        if not reader.is_bam:
+            blocks = reader.raw_record_line_blocks()
+            while True:
+                with tracing.span("bam_read"):
+                    block = next(blocks, None)
+                if block is None:
+                    break
+                with tracing.span("scan_mask"):
+                    mask = np.frombuffer(
+                        nat.scan_keep_mask(block, FLAG_SKIP, primary_mask), np.uint8
+                    )
+                    lines_buf += block
+                    keep_buf = np.concatenate([keep_buf, mask])
+                    kept_in_buf += int((mask == 2).sum())
+                form_batches()
+            form_batches(eof=True)
+        else:
+            ingest = BamIngest(reader, refmap, FLAG_SKIP, primary_mask, batch_size, *stage_pads)
+            next_staged = ingest.next_batch
+            if pool is not None:
+                ingest_thread = IngestThread(ingest, INGEST_DEPTH, _jitter)
+                next_staged = ingest_thread.get
+            while True:
+                with tracing.span("bam_read"):
+                    item = next_staged()
+                if item is None:
+                    break
+                staged, nrec, kept_exp = item
+                submit(None, kept_exp, nrec, staged)
     finally:
+        if ingest_thread is not None:
+            ingest_thread.close()
+        if ingest is not None:
+            ingest.close()
         if writer_thread is not None:
             # the last hand-over, then the wait for the writer to drain
             with tracing.span("submit_wait"):
@@ -1552,6 +1577,8 @@ def run_fast(
         log_time("[fastlane diag] " + json.dumps({
             **AGG_DIAG,
             **pairs_built,
+            **{key: AGG_DIAG[key] - ingest_base[key] for key in INGEST_KEYS},
+            "batches": state["batches"],
             "kernel_launches": dict(_kernels.LAUNCHES),
             "device": str(device),
         }))
